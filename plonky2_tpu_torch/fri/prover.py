@@ -1,0 +1,156 @@
+"""FRI prover: commit/fold layers, proof-of-work grind, query rounds
+(plonky2_tpu/fri/prover.py; reference fri/prover.rs — fri_committed_trees
+:70-114, fri_proof_of_work:117-161, query rounds :164-218)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from plonky2_tpu import native
+from plonky2_tpu.field import reference as ref
+from plonky2_tpu.fri.config import FriParams
+from plonky2_tpu.fri.proof import (
+    FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep,
+)
+
+from ..field.extension import GF2
+from ..hash import poseidon as ps
+from ..hash.merkle import MerkleTree
+from ..iop.challenger import Challenger
+from ..ops import ntt
+from ..ops.polynomial import horner_fold
+
+
+def _brv_leaves(values: GF2, arity: int) -> torch.Tensor:
+    """[n] ext values -> bit-reversed, arity-chunked leaves [n/arity,
+    2*arity], each element flattened as (c0, c1)."""
+    rev = ntt._perm("rev", values.shape[0], values.c0.device)
+    c0 = values.c0.index_select(0, rev).reshape(-1, arity)
+    c1 = values.c1.index_select(0, rev).reshape(-1, arity)
+    return torch.stack([c0, c1], dim=-1).reshape(c0.shape[0], 2 * arity)
+
+
+def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
+                        fri_params: FriParams):
+    trees = []
+    shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
+    cap_height = fri_params.config.cap_height
+    for arity_bits in fri_params.reduction_arity_bits:
+        tree = MerkleTree(_brv_leaves(values, 1 << arity_bits), cap_height)
+        challenger.observe_cap(tree.cap_digests())
+        trees.append(tree)
+        beta = challenger.get_extension_challenge()
+        shift = ref.exp(shift, 1 << arity_bits)
+        coeffs = horner_fold(coeffs, beta, arity_bits)
+        values = ntt.coset_fft_ext(coeffs, shift)
+    final_len = coeffs.shape[-1] >> fri_params.config.rate_bits
+    final_coeffs = coeffs[:final_len].to_pairs()
+    challenger.observe_extension_elements(final_coeffs)
+    return trees, final_coeffs
+
+
+def _pow_wave_device(state, witness_pos: int, threshold: int, batch: int,
+                     device) -> int:
+    """Grind on the device through K2 in waves of `batch` candidates; the
+    smallest valid witness of the first wave that has one."""
+    base = torch.as_tensor(np.asarray(state, dtype=np.uint64).view(np.int64),
+                           device=device)
+    start = 0
+    while True:
+        states = base.expand(batch, ps.W).clone()
+        states[:, witness_pos] = torch.arange(start, start + batch,
+                                              device=device)
+        r = ps.permute(states)[:, ps.SPONGE_RATE - 1]
+        hits = torch.nonzero((r >= 0) & (r < threshold))
+        if hits.numel():
+            return start + int(hits[0, 0])
+        start += batch
+        assert start < 1 << 40, "PoW grind failed (astronomically unlikely)"
+
+
+def _pow_grind_host(state, witness_pos: int, threshold: int,
+                    batch: int) -> int:
+    """Grind through the native C permutation, scalar python without it."""
+    base = np.asarray(state, dtype=np.uint64)
+    start = 0
+    while True:
+        states = np.tile(base, (batch, 1))
+        states[:, witness_pos] = start + np.arange(batch, dtype=np.uint64)
+        out = native.permute_many(states)
+        if out is None:
+            out = np.asarray([ps.permute_host(list(map(int, s)))
+                              for s in states], dtype=np.uint64)
+        hits = np.nonzero(out[:, ps.SPONGE_RATE - 1] < np.uint64(threshold))[0]
+        if len(hits):
+            return start + int(hits[0])
+        start += batch
+        assert start < 1 << 40, "PoW grind failed (astronomically unlikely)"
+
+
+def fri_proof_of_work(challenger: Challenger, pow_bits: int, device) -> int:
+    """Find the smallest witness w whose duplex response has >= pow_bits
+    leading zeros. On a GPU the wave runs through K2; a CPU prover grinds
+    through the host's native permutation, as the JAX prover does on CPU."""
+    state = list(challenger.sponge_state)
+    witness_pos = len(challenger.input_buffer)
+    for i, x in enumerate(challenger.input_buffer):
+        state[i] = x
+    threshold = 1 << (64 - pow_bits)
+    if torch.device(device).type == "cuda":
+        witness = _pow_wave_device(state, witness_pos, threshold,
+                                   max(256, min(1 << 20, 8 << pow_bits)),
+                                   device)
+    else:
+        witness = _pow_grind_host(state, witness_pos, threshold,
+                                  max(256, min(1 << 16, 2 << pow_bits)))
+    challenger.observe_element(witness)
+    response = challenger.get_challenge()
+    assert response < threshold
+    return witness
+
+
+def fri_prover_query_rounds(initial_trees, trees, challenger: Challenger,
+                            n: int, fri_params: FriParams):
+    indices = [c % n for c in
+               challenger.get_n_challenges(fri_params.config.num_query_rounds)]
+    init_rows = [t.rows_batch(indices) for t in initial_trees]
+    init_paths = [t.prove_batch(indices) for t in initial_trees]
+    step_rows, step_paths = [], []
+    cur = np.asarray(indices, dtype=np.int64)
+    for tree, arity_bits in zip(trees, fri_params.reduction_arity_bits):
+        cur = cur >> arity_bits
+        step_rows.append(tree.rows_batch(cur))
+        step_paths.append(tree.prove_batch(cur))
+    rounds = []
+    for q in range(len(indices)):
+        initial = [(init_rows[t][q], init_paths[t][q])
+                   for t in range(len(initial_trees))]
+        steps = []
+        for rows, paths in zip(step_rows, step_paths):
+            row = rows[q]
+            evals = [(int(row[2 * j]), int(row[2 * j + 1]))
+                     for j in range(len(row) // 2)]
+            steps.append(FriQueryStep(evals=evals, merkle_proof=paths[q]))
+        rounds.append(FriQueryRound(
+            initial_trees_proof=FriInitialTreeProof(evals_proofs=initial),
+            steps=steps))
+    return rounds
+
+
+def fri_proof(initial_trees, lde_coeffs: GF2, lde_values: GF2,
+              challenger: Challenger, fri_params: FriParams) -> FriProof:
+    n = lde_values.shape[-1]
+    trees, final_coeffs = fri_committed_trees(lde_coeffs, lde_values,
+                                              challenger, fri_params)
+    pow_witness = fri_proof_of_work(challenger,
+                                    fri_params.config.proof_of_work_bits,
+                                    lde_values.c0.device)
+    query_rounds = fri_prover_query_rounds(initial_trees, trees, challenger,
+                                           n, fri_params)
+    return FriProof(
+        commit_phase_merkle_caps=[t.cap_digests() for t in trees],
+        query_round_proofs=query_rounds,
+        final_poly=final_coeffs,
+        pow_witness=pow_witness,
+    )

@@ -1,0 +1,65 @@
+"""Fiat-Shamir challenger: the duplex sponge of plonky2_tpu/iop/challenger.py
+on the host Poseidon (reference: plonky2/src/iop/challenger.rs — observe
+buffers inputs and duplexes at RATE; get_challenge pops from the END of the
+squeezed outputs; duplexing overwrites state[0:len(inputs)])."""
+
+from __future__ import annotations
+
+from plonky2_tpu.field import reference as ref
+
+from ..hash.poseidon import SPONGE_RATE, W
+
+
+class Challenger:
+    def __init__(self, hasher=None):
+        if hasher is None:
+            from ..hash.hashers import POSEIDON
+            hasher = POSEIDON
+        self.hasher = hasher
+        self.sponge_state: list[int] = [0] * W
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+
+    def observe_element(self, x: int) -> None:
+        self.output_buffer.clear()
+        self.input_buffer.append(int(x) % ref.ORDER)
+        if len(self.input_buffer) == SPONGE_RATE:
+            self._duplexing()
+
+    def observe_elements(self, xs) -> None:
+        for x in xs:
+            self.observe_element(int(x))
+
+    def observe_extension_element(self, x) -> None:
+        self.observe_elements(x)
+
+    def observe_extension_elements(self, xs) -> None:
+        for x in xs:
+            self.observe_extension_element(x)
+
+    def observe_hash(self, h) -> None:
+        self.observe_elements(h)
+
+    def observe_cap(self, cap) -> None:
+        for h in cap:
+            self.observe_hash(h)
+
+    def get_challenge(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._duplexing()
+        return self.output_buffer.pop()
+
+    def get_n_challenges(self, n: int) -> list[int]:
+        return [self.get_challenge() for _ in range(n)]
+
+    def get_extension_challenge(self) -> tuple[int, int]:
+        c = self.get_n_challenges(2)
+        return (c[0], c[1])
+
+    def _duplexing(self) -> None:
+        assert len(self.input_buffer) <= SPONGE_RATE
+        for i, x in enumerate(self.input_buffer):
+            self.sponge_state[i] = x
+        self.input_buffer.clear()
+        self.sponge_state = self.hasher.permute_oracle(self.sponge_state)
+        self.output_buffer = list(self.sponge_state[:SPONGE_RATE])

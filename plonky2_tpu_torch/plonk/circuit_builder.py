@@ -1,0 +1,316 @@
+"""CircuitBuilder — the core of plonky2_tpu/plonk/circuit_builder.py
+(reference: plonk/circuit_builder.rs — add_gate:445, connect:516,
+find_slot:786, blind_and_pad:884, build:1045-1265) for non-ZK circuits:
+virtual targets, public inputs, connect, constants, arithmetic, the Poseidon
+public-input hash gadget, padding and `build()`.
+
+`build(device=...)` commits the constants and sigmas on that device; the
+circuit's proofs run there. The builder's numpy generator (`seed`) fills the
+unused public-input-gate wires at prove time, in the reference's order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from plonky2_tpu.field import reference as ref
+from plonky2_tpu.iop.generator import ConstantGenerator, RandomValueGenerator
+from plonky2_tpu.iop.target import virtual, wire
+from plonky2_tpu.plonk.circuit_data import (
+    CommonCircuitData, ProverOnlyData, SelectorsInfo, VerifierOnlyData,
+)
+from plonky2_tpu.plonk.config import CircuitConfig
+from plonky2_tpu.plonk.permutation import Forest
+
+from ..field import goldilocks as gl
+from ..fri.oracle import PolynomialBatch
+from ..gates.basic_gates import (
+    ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
+)
+from ..gates.gate import UNUSED_SELECTOR, Gate
+from ..gates.poseidon_gate import PoseidonGate
+from ..hash.hashers import PoseidonGoldilocksConfig
+from ..hash.poseidon import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
+from .circuit_data import CircuitData
+
+
+class CircuitBuilder:
+    def __init__(self, config: CircuitConfig | None = None,
+                 seed: int | None = None):
+        self.config = config or CircuitConfig.standard_recursion_config()
+        if self.config.zero_knowledge:
+            raise NotImplementedError("zero-knowledge circuits are not ported")
+        self.gate_instances: list[tuple[Gate, list[int]]] = []
+        self.gate_types: dict[str, Gate] = {}
+        self.copy_constraints: list[tuple] = []
+        self.public_inputs: list = []
+        self.virtual_target_count = 0
+        self.constants_to_targets: dict[int, tuple] = {}
+        self.targets_to_constants: dict[tuple, int] = {}
+        self.constant_generators: list[ConstantGenerator] = []
+        self.base_arithmetic_results: dict = {}
+        self.current_slots: dict[str, dict[tuple, tuple[int, int]]] = {}
+        self.generators: list = []
+        self._rng = np.random.default_rng(seed)
+
+    # -- targets --------------------------------------------------------------
+    def add_virtual_target(self):
+        t = virtual(self.virtual_target_count)
+        self.virtual_target_count += 1
+        return t
+
+    def add_virtual_targets(self, n: int):
+        return [self.add_virtual_target() for _ in range(n)]
+
+    def register_public_input(self, t) -> None:
+        self.public_inputs.append(t)
+
+    def register_public_inputs(self, ts) -> None:
+        self.public_inputs.extend(ts)
+
+    # -- gates ----------------------------------------------------------------
+    def add_gate(self, gate: Gate, constants: list[int]) -> int:
+        assert gate.num_wires() <= self.config.num_wires, \
+            f"{gate.id()} needs {gate.num_wires()} wires"
+        assert len(constants) <= gate.num_constants()
+        constants = (list(constants)
+                     + [0] * (gate.num_constants() - len(constants)))
+        row = len(self.gate_instances)
+        for const_idx, wire_idx in gate.extra_constant_wires():
+            self.constant_generators.append(
+                ConstantGenerator(row, const_idx, wire_idx, 0))
+        self.gate_types.setdefault(gate.id(), gate)
+        self.gate_instances.append((gate, constants))
+        return row
+
+    def find_slot(self, gate: Gate, params: tuple, constants: list[int]):
+        """Batched-op slot allocation (reference: circuit_builder.rs:786)."""
+        slots = self.current_slots.setdefault(gate.id(), {})
+        if params in slots:
+            gate_idx, slot_idx = slots[params]
+        else:
+            gate_idx, slot_idx = self.add_gate(gate, constants), 0
+        if slot_idx == gate.num_ops() - 1:
+            slots.pop(params, None)
+        else:
+            slots[params] = (gate_idx, slot_idx + 1)
+        return gate_idx, slot_idx
+
+    def connect(self, x, y) -> None:
+        self.copy_constraints.append((x, y))
+
+    # -- constants and arithmetic ---------------------------------------------
+    def constant(self, c: int):
+        c %= ref.ORDER
+        if c in self.constants_to_targets:
+            return self.constants_to_targets[c]
+        t = self.add_virtual_target()
+        self.constants_to_targets[c] = t
+        self.targets_to_constants[t] = c
+        return t
+
+    def zero(self):
+        return self.constant(0)
+
+    def one(self):
+        return self.constant(1)
+
+    def arithmetic(self, const_0: int, const_1: int, m0, m1, addend):
+        """A target for const_0 * m0 * m1 + const_1 * addend."""
+        const_0 %= ref.ORDER
+        const_1 %= ref.ORDER
+        known = [self.targets_to_constants.get(t) for t in (m0, m1, addend)]
+        if None not in known:
+            c0, c1, ca = known
+            return self.constant((const_0 * c0 % ref.ORDER * c1
+                                  + const_1 * ca) % ref.ORDER)
+        key = (const_0, const_1, m0, m1, addend)
+        if key in self.base_arithmetic_results:
+            return self.base_arithmetic_results[key]
+        gate = ArithmeticGate.from_config(self.config)
+        row, i = self.find_slot(gate, (const_0, const_1), [const_0, const_1])
+        self.connect(m0, wire(row, gate.wire_multiplicand_0(i)))
+        self.connect(m1, wire(row, gate.wire_multiplicand_1(i)))
+        self.connect(addend, wire(row, gate.wire_addend(i)))
+        out = wire(row, gate.wire_output(i))
+        self.base_arithmetic_results[key] = out
+        return out
+
+    def add(self, a, b):
+        return self.arithmetic(1, 1, a, self.one(), b)
+
+    def mul(self, a, b):
+        return self.arithmetic(1, 0, a, b, self.zero())
+
+    # -- hashing gadget (reference: hash/hashing.rs:18-64) --------------------
+    def permute(self, inputs: list):
+        swap = self.zero()
+        gate = PoseidonGate()
+        row = self.add_gate(gate, [])
+        self.connect(swap, wire(row, gate.WIRE_SWAP))
+        for i in range(W):
+            self.connect(inputs[i], wire(row, gate.wire_input(i)))
+        return [wire(row, gate.wire_output(i)) for i in range(W)]
+
+    def hash_n_to_m_no_pad(self, inputs: list, num_outputs: int):
+        state = [self.zero()] * W
+        for start in range(0, len(inputs), SPONGE_RATE):
+            chunk = inputs[start:start + SPONGE_RATE]
+            state = self.permute(chunk + state[len(chunk):])
+        outputs = []
+        while True:
+            for s in state[:SPONGE_RATE]:
+                outputs.append(s)
+                if len(outputs) == num_outputs:
+                    return outputs
+            state = self.permute(state)
+
+    def public_inputs_hash_gadget(self, inputs: list):
+        """Public inputs are always hashed, even when <= 4."""
+        return self.hash_n_to_m_no_pad(inputs, NUM_HASH_OUT_ELTS)
+
+    def blind_and_pad(self, min_degree_bits: int | None = None) -> None:
+        n = len(self.gate_instances)
+        target = max(1 << (n - 1).bit_length(), 1 << (min_degree_bits or 0))
+        for _ in range(target - n):
+            self.add_gate(NoopGate(), [])
+
+    # -- build ----------------------------------------------------------------
+    def build(self, *, device, min_degree_bits: int | None = None,
+              gc=PoseidonGoldilocksConfig) -> CircuitData:
+        config = self.config
+        rate_bits = config.fri_config.rate_bits
+        cap_height = config.fri_config.cap_height
+
+        num_public_inputs = len(self.public_inputs)
+        pi_hash = self.public_inputs_hash_gadget(list(self.public_inputs))
+        pi_gate_obj = PublicInputGate()
+        pi_gate = self.add_gate(pi_gate_obj, [])
+        for h, w in zip(pi_hash, pi_gate_obj.wires_public_inputs_hash()):
+            self.connect(h, wire(pi_gate, w))
+        # randomize unused public-input-gate wires (circuit_builder.rs:1025)
+        for col in range(4, config.num_wires):
+            self.generators.append(
+                RandomValueGenerator(wire(pi_gate, col), self._rng))
+
+        # route each constant to a ConstantGate slot
+        while len(self.constants_to_targets) > len(self.constant_generators):
+            self.add_gate(ConstantGate(config.num_constants), [])
+        for (c, t), cg in zip(sorted(self.constants_to_targets.items()),
+                              self.constant_generators):
+            self.gate_instances[cg.row][1][cg.constant_index] = c
+            self.connect(wire(cg.row, cg.wire_index), t)
+            cg.constant = c
+            self.generators.append(cg)
+
+        self.blind_and_pad(min_degree_bits)
+        degree = len(self.gate_instances)
+        degree_bits = degree.bit_length() - 1
+        fri_params = config.fri_config.fri_params(degree_bits, False)
+        assert fri_params.total_arities <= \
+            degree_bits + rate_bits - cap_height, \
+            "FRI total reduction arity is too large."
+
+        qdf = config.max_quotient_degree_factor
+        gates = sorted(self.gate_types.values(),
+                       key=lambda g: (g.degree(), g.id()))
+        selector_values, selectors_info = _selector_polynomials(
+            gates, self.gate_instances, qdf + 1)
+        constant_cols = np.zeros((config.num_constants, degree),
+                                 dtype=np.uint64)
+        for row, (_, consts) in enumerate(self.gate_instances):
+            for j, c in enumerate(consts):
+                constant_cols[j, row] = c
+        constant_vecs = np.concatenate([selector_values, constant_cols])
+
+        subgroup = np.asarray(ref.two_adic_subgroup(degree_bits),
+                              dtype=np.uint64)
+        k_is = [ref.exp(ref.MULTIPLICATIVE_GROUP_GENERATOR, i)
+                for i in range(config.num_routed_wires)]
+        forest = Forest(config.num_wires, config.num_routed_wires, degree)
+        forest.add_virtual(self.virtual_target_count)
+        for x, y in self.copy_constraints:
+            forest.merge(x, y)
+        representative_map = forest.compress_paths()
+        sigma_vecs = forest.sigma_vecs(k_is, subgroup)
+
+        constants_sigmas = PolynomialBatch.from_values(
+            gl.from_u64(np.concatenate([constant_vecs, sigma_vecs]), device),
+            rate_bits, cap_height)
+
+        # generators per gate instance, dropping unused batched-op slots
+        incomplete = {gate_idx: next_slot
+                      for slots in self.current_slots.values()
+                      for gate_idx, next_slot in slots.values()}
+        generators = list(self.generators)
+        for row, (gate, consts) in enumerate(self.gate_instances):
+            gens = gate.generators(row, consts)
+            if row in incomplete:
+                gens = gens[:incomplete[row]]
+            generators.extend(gens)
+
+        cap = constants_sigmas.merkle_tree.cap_digests()
+        # circuit digest (circuit_builder.rs:1200-1212): hash of the cap,
+        # the padded hash of the (empty) domain separator and degree_bits
+        digest_inputs = ([x for d in cap for x in d]
+                         + list(gc.hasher.hash_pad_oracle([]))
+                         + [degree_bits])
+        circuit_digest = gc.hasher.hash_no_pad_oracle(digest_inputs)
+
+        common = CommonCircuitData(
+            config=config,
+            fri_params=fri_params,
+            gates=gates,
+            selectors_info=selectors_info,
+            quotient_degree_factor=qdf,
+            num_gate_constraints=max(g.num_constraints() for g in gates),
+            num_constants=constant_vecs.shape[0],
+            num_public_inputs=num_public_inputs,
+            k_is=k_is,
+            num_partial_products=(config.num_routed_wires + qdf - 1) // qdf
+            - 1,
+            gc=gc,
+        )
+        prover_only = ProverOnlyData(
+            generators=generators,
+            constants_sigmas_commitment=constants_sigmas,
+            sigmas=sigma_vecs,
+            subgroup=subgroup,
+            public_inputs=list(self.public_inputs),
+            representative_map=representative_map,
+            circuit_digest=circuit_digest,
+        )
+        verifier_only = VerifierOnlyData(constants_sigmas_cap=cap,
+                                         circuit_digest=circuit_digest)
+        return CircuitData(prover_only, verifier_only, common)
+
+
+def _selector_polynomials(gates, instances, max_degree: int):
+    """reference: gates/selectors.rs:103-190."""
+    n = len(instances)
+    num_gates = len(gates)
+    index = {g.id(): i for i, g in enumerate(gates)}
+    if gates[-1].degree() + num_gates - 1 <= max_degree:
+        poly = np.asarray([index[g.id()] for g, _ in instances],
+                          dtype=np.uint64)[None, :]
+        return poly, SelectorsInfo(selector_indices=[0] * num_gates,
+                                   groups=[range(0, num_gates)])
+    assert gates[-1].degree() < max_degree, \
+        f"{gates[-1].id()} has too high degree"
+    groups = []
+    start = 0
+    while start < num_gates:
+        size = 0
+        while (start + size < num_gates
+               and size + gates[start + size].degree() < max_degree):
+            size += 1
+        groups.append(range(start, start + size))
+        start += size
+    selector_indices = [next(gi for gi, r in enumerate(groups) if i in r)
+                        for i in range(num_gates)]
+    polys = np.full((len(groups), n), UNUSED_SELECTOR, dtype=np.uint64)
+    for j, (g, _) in enumerate(instances):
+        i = index[g.id()]
+        polys[selector_indices[i], j] = i
+    return polys, SelectorsInfo(selector_indices=selector_indices,
+                                groups=groups)

@@ -1,0 +1,114 @@
+"""The port's commitment and FRI pieces against the JAX package on seeded
+inputs: PolynomialBatch commits (caps, leaves, LDE rows), the polynomial
+ops of the opening path, the fold layer, the leaf flattening, and the PoW
+wave's smallest-witness rule. Tolerance: exact."""
+
+import numpy as np
+import pytest
+
+from plonky2_tpu.field import reference as ref
+from plonky2_tpu.field.extension import GF2 as JGF2
+from plonky2_tpu.field.goldilocks import GF
+from plonky2_tpu.fri import prover as jfri
+from plonky2_tpu.fri.oracle import PolynomialBatch as JPolynomialBatch
+from plonky2_tpu.iop.challenger import Challenger as JChallenger
+from plonky2_tpu.ops import ntt as jntt
+from plonky2_tpu.ops import polynomial as jpoly
+from plonky2_tpu_torch.field import goldilocks as gl
+from plonky2_tpu_torch.field.extension import GF2
+from plonky2_tpu_torch.fri import prover as fri
+from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+from plonky2_tpu_torch.iop.challenger import Challenger
+from plonky2_tpu_torch.ops import ntt
+from plonky2_tpu_torch.ops import polynomial as poly
+
+RNG = np.random.default_rng(13)
+Z = (int(RNG.integers(0, ref.ORDER, dtype=np.uint64)),
+     int(RNG.integers(0, ref.ORDER, dtype=np.uint64)))
+
+
+def _rand(*shape):
+    return RNG.integers(0, ref.ORDER, size=shape, dtype=np.uint64)
+
+
+def _ext(n):
+    a, b = _rand(n), _rand(n)
+    return GF2(gl.from_u64(a, "cpu"), gl.from_u64(b, "cpu")), \
+        JGF2(GF.from_u64(a), GF.from_u64(b))
+
+
+def _pairs(j):
+    c0, c1 = j.to_u64_pair()
+    return [(int(x), int(y)) for x, y in zip(np.ravel(c0), np.ravel(c1))]
+
+
+@pytest.mark.parametrize("num,lg_n", [(3, 3), (20, 5), (135, 4)])
+def test_commit_vs_jax(num, lg_n):
+    values = _rand(num, 1 << lg_n)
+    cap_height = min(4, lg_n + 3)
+    ours = PolynomialBatch.from_values(gl.from_u64(values, "cpu"), 3,
+                                       cap_height)
+    theirs = JPolynomialBatch.from_values(GF.from_u64(values), 3, False,
+                                          cap_height)
+    np.testing.assert_array_equal(gl.to_u64(ours.polynomials),
+                                  theirs.polynomials.to_u64())
+    assert ours.merkle_tree.cap_digests() == \
+        [tuple(int(x) for x in d) for d in theirs.merkle_tree.cap_digests()]
+    np.testing.assert_array_equal(ours.merkle_tree.leaves_host(),
+                                  theirs.merkle_tree.leaves_host())
+    idx = [0, 5, (8 << lg_n) - 1]
+    np.testing.assert_array_equal(ours.get_lde_values(idx[1], 2),
+                                  theirs.get_lde_values(idx[1], 2))
+    np.testing.assert_array_equal(ours.get_lde_values_batch(idx),
+                                  theirs.get_lde_values_batch(idx))
+
+
+def test_reduce_polys_and_divide_by_linear():
+    polys = _rand(7, 64)
+    got = poly.reduce_polys_base(gl.from_u64(polys, "cpu"), Z)
+    want = jpoly.reduce_polys_base(GF.from_u64(polys), JGF2.const(*Z))
+    assert got.to_pairs() == _pairs(want)
+    q = poly.divide_by_linear(got, Z)
+    assert q.to_pairs() == _pairs(jpoly.divide_by_linear(want,
+                                                         JGF2.const(*Z)))
+
+
+def test_horner_fold_and_eval():
+    ours, theirs = _ext(256)
+    got = poly.horner_fold(ours, Z, 4)
+    assert got.to_pairs() == _pairs(jpoly.horner_fold(theirs, JGF2.const(*Z),
+                                                      4))
+    assert poly.eval_poly_ext(ours, Z).reshape(1).to_pairs() == \
+        _pairs(jpoly.eval_poly_ext(theirs, JGF2.const(*Z)))
+
+
+def test_fold_layer_and_leaves_vs_jax():
+    ours, theirs = _ext(1 << 8)
+    shift = ref.exp(ref.MULTIPLICATIVE_GROUP_GENERATOR, 16)
+    folded = poly.horner_fold(ours, Z, 4)
+    values = ntt.coset_fft_ext(folded, shift)
+    jfolded = jpoly.horner_fold(theirs, JGF2.const(*Z), 4)
+    jvalues = jntt.coset_fft_ext(jfolded, shift)
+    assert folded.to_pairs() == _pairs(jfolded)
+    assert values.to_pairs() == _pairs(jvalues)
+    np.testing.assert_array_equal(
+        gl.to_u64(fri._brv_leaves(ours, 16)),
+        jfri._brv_leaves_fn(1 << 8, 16)(theirs).to_u64())
+
+
+def test_pow_wave_takes_smallest_witness():
+    """The wave (K2's plain version on CPU) and the JAX grind find the same
+    witness for the same transcript state; 6 bits, waves of 64."""
+    ours, theirs = Challenger(), JChallenger()
+    for x in _rand(11):
+        ours.observe_element(int(x))
+        theirs.observe_element(int(x))
+    state = list(ours.sponge_state)
+    for i, x in enumerate(ours.input_buffer):
+        state[i] = x
+    threshold = 1 << (64 - 6)
+    got = fri._pow_wave_device(state, len(ours.input_buffer), threshold, 64,
+                               "cpu")
+    assert got == jfri.fri_proof_of_work(theirs, 6, batch=64)
+    assert got == fri._pow_grind_host(state, len(ours.input_buffer),
+                                      threshold, 64)
