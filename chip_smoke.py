@@ -4,36 +4,65 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. build the CUDA kernels from plonky2_tpu_torch/csrc (nvcc, sm_90a);
-  2. fib100: build (seed 1234), prove and verify with the port, and match
-     every field of tests/golden/fib100_transcript.json, proof bytes included;
-  3. dummy-2^14: the base proof of the reference's bench_recursion
-     (dummy_circuit(standard_recursion_config(), 14, 4), public input 0 = 42):
-     build, prove cold and warm, verify, and reject a flipped public input;
-     every kernel must have been launched by this phase;
-  4. every kernel against its plain PyTorch version on the card, over full
-     outputs, at every shape phase 3 launched it at (tolerance: bit-exact).
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without a GPU, and imports
-nothing of JAX.
+  1. build the CUDA kernels from plonky2_tpu_torch/csrc (one nvcc per
+     source, in parallel, sm_90a);
+  2. fib100: build (seed 1234), prove and verify with the port under
+     PoseidonGoldilocksConfig, and match every field of
+     tests/golden/fib100_transcript.json, proof bytes included;
+  3. fib21-poseidon2: the same for fib(21) under Poseidon2GoldilocksConfig
+     against tests/golden/fib21_Poseidon2GoldilocksConfig_transcript.json;
+  4. dummy-2^14: the base proof of the reference's bench_recursion
+     (dummy_circuit(standard_recursion_config(), 14, 4), public input
+     0 = 42) under Poseidon: build, prove cold and warm, verify, and reject
+     a flipped public input; K1, K2 and K3 must have been launched;
+  5. dummy-2^14-poseidon2: the same circuit under Poseidon2; K1, K6 and K7
+     must have been launched;
+  6. every kernel against its plain PyTorch version on the card, over full
+     outputs, at every shape phases 4 and 5 launched it at (tolerance:
+     bit-exact), with its time, the plain version's time and its bound.
+The kernel counts are set to 0 just before phases 4 and 5 and read just
+after each. The line before the last is the kernel table as JSON; the last
+line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
 
 sys.modules["jax"] = None          # the port must not need JAX
+sys.modules["plonky2_tpu"] = None  # nor the JAX package
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "golden", "fib100_transcript.json")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+P2 = "Poseidon2GoldilocksConfig"
+
+# H100 SXM: HBM bytes/s (NVIDIA data sheet), the 32-bit integer
+# multiply-add rate of one SM per clock (64 INT32 lanes), and the
+# instructions one SM issues per clock (4 schedulers x 32 lanes)
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+IMAD_PER_SM_CLK = 64
+ISSUE_PER_SM_CLK = 128
+# trip counts of the loops the compiler keeps inside each permutation
+# kernel: K2 runs its 22 partial rounds as 11 iterations of 2 (unroll 2);
+# K6 is fully unrolled
+PERMUTE_LOOP_TRIPS = {"poseidon_permute": [11], "poseidon2_permute": []}
+SASS_FUNCTION = {"poseidon_permute": "permute_kernel",
+                 "poseidon2_permute": "permute2_kernel"}
+FIELD_MULS = {"poseidon_permute": 570, "poseidon2_permute": 736}
+# a 64 x 64 -> 128-bit product takes at least four 32-bit partial products
+MIN_IMAD_PER_FIELD_MUL = 4
 
 
 def log(msg: str) -> None:
@@ -52,28 +81,33 @@ def phase(name: str):
     return wrap
 
 
-@phase("fib100")
-def fib100(device):
-    from plonky2_tpu.iop.witness import PartialWitness
-    from plonky2_tpu.plonk.config import CircuitConfig
-    from plonky2_tpu.utils.serialization import serialize_proof_with_pis
+def _fib(steps: int, gc, device):
+    from plonky2_tpu_torch.iop.witness import PartialWitness
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
-    from plonky2_tpu_torch.plonk.get_challenges import get_challenges
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
 
     builder = CircuitBuilder(CircuitConfig.standard_recursion_config(),
                              seed=1234)
     a, b = builder.add_virtual_target(), builder.add_virtual_target()
     prev, cur = a, b
-    for _ in range(99):
+    for _ in range(steps):
         prev, cur = cur, builder.add(prev, cur)
     for t in (a, b, cur):
         builder.register_public_input(t)
-    data = builder.build(device=device)
+    data = builder.build(device=device, gc=gc)
     pw = PartialWitness()
     pw.set_target(a, 0)
     pw.set_target(b, 1)
     proof = data.prove(pw)
     data.verify(proof)
+    return data, proof
+
+
+def _golden(name: str, data, proof, path: str) -> None:
+    from plonky2_tpu_torch.plonk.get_challenges import get_challenges
+    from plonky2_tpu_torch.utils.serialization import (
+        serialize_proof_with_pis,
+    )
 
     common = data.common
     pi_hash = common.gc.hash_public_inputs(proof.public_inputs)
@@ -93,26 +127,45 @@ def fib100(device):
         "pow_witness": proof.proof.opening_proof.pow_witness,
         "proof_hex": serialize_proof_with_pis(proof, common).hex(),
     }
-    with open(GOLDEN) as f:
+    with open(path) as f:
         want = json.load(f)
     bad = [k for k in want if got[k] != want[k]]
-    if bad:
-        raise AssertionError(f"fib100 transcript fields diverged: {bad}")
-    log(f"fib100: all {len(want)} golden transcript fields equal "
+    if bad or len(want) != 13:
+        raise AssertionError(f"{name} transcript fields diverged: {bad}")
+    log(f"{name}: all {len(want)} golden transcript fields equal "
         f"(proof {len(got['proof_hex']) // 2} bytes)")
 
 
-@phase("dummy-2^14")
-def dummy_2_14(device):
-    from plonky2_tpu.plonk.config import CircuitConfig
+@phase("fib100")
+def fib100(device):
+    from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
+    data, proof = _fib(99, PoseidonGoldilocksConfig, device)
+    _golden("fib100", data, proof,
+            os.path.join(GOLDEN_DIR, "fib100_transcript.json"))
+
+
+@phase("fib21-poseidon2")
+def fib21_poseidon2(device):
+    from plonky2_tpu_torch.hash.hashers import CONFIGS
+    data, proof = _fib(20, CONFIGS[P2], device)
+    _golden("fib21-poseidon2", data, proof,
+            os.path.join(GOLDEN_DIR, f"fib21_{P2}_transcript.json"))
+
+
+def _dummy(name: str, gc, device, kernels: tuple):
+    """Build, prove cold and warm, verify and tamper-check the 2^14 dummy
+    circuit under `gc`; the counts are set to 0 just before and read just
+    after. Returns {kernel: launches} and {kernel: {shape: launches}}."""
     from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
     from plonky2_tpu_torch.recursion.dummy import dummy_circuit, dummy_proof
 
-    backend.reset_counts()
+    torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
+    backend.reset_counts()
     t0 = time.perf_counter()
     data, pis = dummy_circuit(CircuitConfig.standard_recursion_config(), 14,
-                              4, device=device)
+                              4, device=device, gc=gc)
     t_build = time.perf_counter() - t0
     times = []
     for _ in range(2):
@@ -124,7 +177,7 @@ def dummy_2_14(device):
     data.verify(proof)
     t_verify = time.perf_counter() - t0
     launches = {k.name: k.launches for k in backend.KERNELS.values()}
-    shapes = {k.name: list(k.shapes) for k in backend.KERNELS.values()}
+    shapes = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
     peak = torch.cuda.max_memory_allocated(device)
 
     tampered = copy.deepcopy(proof)
@@ -132,21 +185,35 @@ def dummy_2_14(device):
     try:
         data.verify(tampered)
     except AssertionError as e:
-        log(f"dummy-2^14: flipped public input rejected ({e})")
+        log(f"{name}: flipped public input rejected ({e})")
     else:
         raise AssertionError("a proof with a flipped public input verified")
 
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched by the main path: "
-                             f"{missing}")
-    log(f"dummy-2^14: degree 2^{data.common.degree_bits}, FRI arities "
-        f"{data.common.fri_params.reduction_arity_bits}, build "
+        raise AssertionError(f"{name}: kernels never launched by the main "
+                             f"path: {missing}")
+    log(f"{name}: {data.common.gc.name}, degree 2^{data.common.degree_bits},"
+        f" FRI arities {data.common.fri_params.reduction_arity_bits}, build "
         f"{t_build:.3f} s, prove cold {times[0]:.3f} s, warm {times[1]:.3f} "
         f"s, verify {t_verify:.3f} s, peak allocated "
         f"{peak / 2**20:.1f} MiB")
-    log(f"dummy-2^14: launches {launches}")
+    log(f"{name}: launches {launches}")
     return launches, shapes
+
+
+@phase("dummy-2^14")
+def dummy_2_14(device):
+    from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
+    return _dummy("dummy-2^14", PoseidonGoldilocksConfig, device,
+                  ("ntt_dit", "poseidon_permute", "poseidon_hash_leaves"))
+
+
+@phase("dummy-2^14-poseidon2")
+def dummy_2_14_poseidon2(device):
+    from plonky2_tpu_torch.hash.hashers import CONFIGS
+    return _dummy("dummy-2^14-poseidon2", CONFIGS[P2], device,
+                  ("ntt_dit", "poseidon2_permute", "poseidon2_hash_leaves"))
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -171,32 +238,128 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return max(abs(int(ua[i]) - int(ub[i])) for i in diff)
 
 
+def _sass_counts(obj: str, function: str, trips: list) -> tuple:
+    """(32-bit integer multiply-adds (IMAD*, IMUL*), all instructions) one
+    thread of `function` executes, from `cuobjdump -sass` of its object: the
+    static count, plus (trips - 1) times the count inside each loop (a
+    backward branch and the instructions from its target to it)."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
+                          text=True, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function + "E" in line       # the mangled name
+            continue
+        if inside:
+            body.append(line)
+    insts, labels = [], {}
+    for line in body:
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"(.*)", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    if not insts:
+        raise RuntimeError(f"no SASS for {function} in {obj}")
+    addr_index = {a: i for i, (a, _, _) in enumerate(insts)}
+    is_mul = [op.startswith(("IMAD", "IMUL")) for _, op, _ in insts]
+    loops = []
+    for i, (_, op, rest) in enumerate(insts):
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"\(?(\.L_x_\d+)\)?", rest)
+        if m and m.group(1) in labels:
+            target = labels[m.group(1)]
+        else:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            target = addr_index.get(int(m.group(1), 16)) if m else None
+        if target is not None and target < i:
+            loops.append((sum(is_mul[target:i + 1]), i + 1 - target))
+    if len(loops) != len(trips):
+        raise RuntimeError(f"{function}: {len(loops)} loops in SASS, "
+                           f"expected {len(trips)}")
+    extra = [(t - 1) * m for t, (m, _) in zip(trips, loops)]
+    extra_insts = [(t - 1) * n for t, (_, n) in zip(trips, loops)]
+    return sum(is_mul) + sum(extra), len(insts) + sum(extra_insts)
+
+
+def _bounds(build_dir: str, clock_mhz: float) -> dict:
+    """Per-permutation IMAD counts of K2 and K6 from their SASS, and the
+    card's IMAD rate at the clock nvidia-smi reads. Also logs all the
+    instructions per permutation and their issue time at 2^19 states."""
+    rate = SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6
+    per_perm = {}
+    for name, src in (("poseidon_permute", "poseidon.cu"),
+                      ("poseidon2_permute", "poseidon2.cu")):
+        per_perm[name], insts = _sass_counts(
+            os.path.join(build_dir, src + ".o"), SASS_FUNCTION[name],
+            PERMUTE_LOOP_TRIPS[name])
+        issue_ms = insts * 2**19 / (SMS * ISSUE_PER_SM_CLK * clock_mhz
+                                    * 1e6) * 1e3
+        log(f"{name}: {per_perm[name]} IMAD and {insts} instructions per "
+            f"permutation (SASS), {FIELD_MULS[name]} field multiplies; "
+            f"2^19 states: IMAD bound "
+            f"{per_perm[name] * 2**19 / rate * 1e3:.4f} ms, issue bound "
+            f"{issue_ms:.4f} ms")
+    return {"rate": rate, "per_perm": per_perm}
+
+
+def _bound(name: str, shape, bounds) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    IMADs over the card's IMAD rate."""
+    if name == "ntt_dit":
+        batch, lg_n, start = shape
+        n = 1 << lg_n
+        nbytes = 8 * (2 * batch * n + n // 2)
+        imads = MIN_IMAD_PER_FIELD_MUL * batch * (lg_n - start) * (n // 2)
+    elif name.endswith("_permute"):
+        nbytes = 2 * 8 * 12 * shape[0]
+        imads = bounds["per_perm"][name] * shape[0]
+    else:
+        L, n = shape
+        perm = name.replace("hash_leaves", "permute")
+        nbytes = 8 * (L * n + 4 * n)
+        imads = bounds["per_perm"][perm] * n * math.ceil(L / 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / bounds["rate"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
 @phase("kernels vs plain")
-def kernels_vs_plain(device, launches, shapes):
+def kernels_vs_plain(device, launches, shapes, bounds):
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.field import goldilocks as gl
     from plonky2_tpu_torch.hash import poseidon as ps
+    from plonky2_tpu_torch.hash import poseidon2 as ps2
     from plonky2_tpu_torch.ops import ntt
 
     rng = np.random.default_rng(7)
+    mods = {"poseidon": ps, "poseidon2": ps2}
 
     def rand(*shape):
         return gl.from_u64(rng.integers(0, gl.ORDER, size=shape,
                                         dtype=np.uint64), device)
 
     def cases(name, shape):
-        """(inputs, kernel call, plain call, elements) at one shape."""
+        """(kernel call, plain call, elements) at one shape."""
         if name == "ntt_dit":
             batch, lg_n, start = shape
             x = rand(batch, 1 << lg_n)
             return (lambda: ntt.dit(x, start),
                     lambda: ntt.dit_plain(x, start), x.numel())
-        if name == "poseidon_permute":
-            s = rand(shape[0], ps.W)
-            return (lambda: ps.permute(s), lambda: ps.permute_plain(s),
+        mod = mods[name.rsplit("_", 2)[0]]
+        if name.endswith("_permute"):
+            s = rand(shape[0], 12)
+            return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
                     s.numel())
         x = rand(*shape)
-        return (lambda: ps.hash_leaves(x), lambda: ps.hash_leaves_plain(x),
+        return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(x),
                 x.numel())
 
     table = []
@@ -207,18 +370,34 @@ def kernels_vs_plain(device, launches, shapes):
             err = _max_abs_err(run(), plain())
             worst = max(worst, err)
             ms, plain_ms = _time_ms(run, 10), _time_ms(plain, 1)
+            bound_ms, bound_by = _bound(kern.name, shape, bounds)
             log(f"{kern.name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms,"
-                f" plain {plain_ms:.4f} ms")
+                f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
             if largest is None or size > largest[0]:
-                largest = (size, shape, ms, plain_ms)
+                largest = (size, shape, ms, plain_ms, bound_ms, bound_by)
         if worst:
             raise AssertionError(f"{kern.name} disagrees with its plain "
                                  f"version (max abs err {worst})")
-        _, shape, ms, plain_ms = largest
-        table.append({"name": kern.name, "route": "cuda",
-                      "source": kern.source, "replaces": kern.replaces,
-                      "launches": launches[kern.name], "max_abs_err": worst,
-                      "shape": list(shape), "ms": ms, "plain_ms": plain_ms})
+        _, shape, ms, plain_ms, bound_ms, bound_by = largest
+        entry = {"name": kern.name, "route": "cuda", "source": kern.source,
+                 "replaces": kern.replaces,
+                 "launches": launches[kern.name], "max_abs_err": worst,
+                 "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 # no single PyTorch call computes a Goldilocks NTT or a
+                 # Poseidon/Poseidon2 permutation or sponge
+                 "library_ms": None}
+        if kern.name == "poseidon_permute":
+            # K4 (v1) and K5 (v2) are tilings of K2's permutation on the
+            # TPU; this kernel takes any batch and serves all three
+            entry["replaces"] = ("plonky2_tpu/ops/pallas_poseidon.py:335 "
+                                 "(K2), :77 (K4), :372 (K5)")
+            small = [s for s in shapes[kern.name] if s[0] < 512]
+            entry["held_below_512"] = [list(s) for s in small]
+            entry["launches_below_512"] = sum(shapes[kern.name][s]
+                                              for s in small)
+        table.append(entry)
     return table
 
 
@@ -233,15 +412,32 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
     log(smi)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}, max SM clock {clock:.0f} MHz")
     log(f"[build] kernels built/loaded in {backend.build():.3f} s")
+    for src in sorted(os.listdir(backend.BUILD_DIR)):
+        if src.endswith(".ptxas.txt"):
+            with open(os.path.join(backend.BUILD_DIR, src)) as f:
+                for line in f:
+                    if "registers" in line or "spill" in line:
+                        log(f"ptxas {src[:-10]}: {line.strip()}")
+    bounds = _bounds(backend.BUILD_DIR, clock)
 
     fib100(device)
+    fib21_poseidon2(device)
     launches, shapes = dummy_2_14(device)
-    table = kernels_vs_plain(device, launches, shapes)
-    assert "jax" not in sys.modules or sys.modules["jax"] is None
+    launches2, shapes2 = dummy_2_14_poseidon2(device)
+    for k in launches:
+        launches[k] += launches2[k]
+        for s, n in shapes2[k].items():
+            shapes[k][s] = shapes[k].get(s, 0) + n
+    table = kernels_vs_plain(device, launches, shapes, bounds)
+    assert sys.modules["jax"] is None and sys.modules["plonky2_tpu"] is None
 
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ is launched (or when `build()` is called). Every C entry returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.
 
 Each kernel has a `Kernel` record here: a launch count (a plain integer that
-its wrapper raises by one per launch) and the ordered list of distinct shapes
-it was launched at, so a run can show which kernels the main path went
+its wrapper raises by one per launch) and the launches per distinct shape, in
+the order first seen, so a run can show which kernels the main path went
 through and replay them against their plain PyTorch versions.
 """
 
@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 LIB_NAME = "libplonky2_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 
 class Kernel:
@@ -37,12 +37,11 @@ class Kernel:
         self.source = source          # path in the repo
         self.replaces = replaces      # file:line of the TPU kernel
         self.launches = 0
-        self.shapes: list[tuple] = []
+        self.shapes: dict[tuple, int] = {}     # shape -> launches
 
     def launched(self, shape: tuple) -> None:
         self.launches += 1
-        if shape not in self.shapes:
-            self.shapes.append(shape)
+        self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
 
 KERNELS = {
@@ -55,6 +54,12 @@ KERNELS = {
     "poseidon_hash_leaves": Kernel(
         "poseidon_hash_leaves", "plonky2_tpu_torch/csrc/poseidon.cu",
         "plonky2_tpu/ops/pallas_poseidon.py:410"),
+    "poseidon2_permute": Kernel(
+        "poseidon2_permute", "plonky2_tpu_torch/csrc/poseidon2.cu",
+        "plonky2_tpu/ops/pallas_poseidon2.py:124"),
+    "poseidon2_hash_leaves": Kernel(
+        "poseidon2_hash_leaves", "plonky2_tpu_torch/csrc/poseidon2.cu",
+        "plonky2_tpu/ops/pallas_poseidon2.py:161"),
 }
 
 
@@ -76,20 +81,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _emit_poseidon_header(path: str) -> None:
-    """Poseidon tables as `__constant__` arrays, generated from the
-    reference's constants and the derived fast-partial-round tables."""
-    from plonky2_tpu.hash.poseidon_constants import (
-        ALL_ROUND_CONSTANTS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG,
-    )
-    from plonky2_tpu.hash.poseidon_fast import fast_partial_tables
-
-    first_rc, partial_rc, vs, w_hats, init_mat = fast_partial_tables()
-    flat = lambda rows: [x for row in rows for x in row]
-    tables = (("C_RC", ALL_ROUND_CONSTANTS), ("C_MDS_CIRC", MDS_MATRIX_CIRC),
-              ("C_MDS_DIAG", MDS_MATRIX_DIAG), ("C_FIRST_RC", first_rc),
-              ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
-              ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat)))
+def _write_tables(path: str, tables) -> None:
+    """(name, values) pairs as `__constant__ uint64_t` arrays."""
     with open(path, "w") as f:
         f.write("// generated by plonky2_tpu_torch/backend.py\n#pragma once\n")
         for name, vals in tables:
@@ -98,9 +91,37 @@ def _emit_poseidon_header(path: str) -> None:
                 ",\n".join("  0x%016xULL" % v for v in vals)))
 
 
+def _emit_tables() -> None:
+    """The kernels' constant tables, generated from the port's constants:
+    Poseidon's round constants, MDS and derived fast-partial-round tables;
+    Poseidon2's full-round constants (the oracle's rows RC12[0..4) and
+    RC12[26..30)), internal-round constants RC12[4 + r][0] and diagonal."""
+    from .hash.poseidon2_constants import (
+        MATRIX_DIAG_12, RC12, ROUNDS_F, ROUNDS_P,
+    )
+    from .hash.poseidon_constants import (
+        ALL_ROUND_CONSTANTS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG,
+    )
+    from .hash.poseidon_fast import fast_partial_tables
+
+    first_rc, partial_rc, vs, w_hats, init_mat = fast_partial_tables()
+    flat = lambda rows: [x for row in rows for x in row]
+    _write_tables(os.path.join(BUILD_DIR, "poseidon_tables.h"), (
+        ("C_RC", ALL_ROUND_CONSTANTS), ("C_MDS_CIRC", MDS_MATRIX_CIRC),
+        ("C_MDS_DIAG", MDS_MATRIX_DIAG), ("C_FIRST_RC", first_rc),
+        ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
+        ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat))))
+    half_f = ROUNDS_F // 2
+    _write_tables(os.path.join(BUILD_DIR, "poseidon2_tables.h"), (
+        ("C2_FULL_RC", flat(RC12[:half_f] + RC12[half_f + ROUNDS_P:])),
+        ("C2_PARTIAL_RC", [RC12[half_f + r][0] for r in range(ROUNDS_P)]),
+        ("C2_DIAG", MATRIX_DIAG_12)))
+
+
 def build() -> float:
-    """Compile `csrc/*.cu` into BUILD_DIR (skipped when the library is newer
-    than every source) and load it. Returns the seconds spent."""
+    """Compile `csrc/*.cu` with nvcc into BUILD_DIR (skipped when the
+    library is newer than every source) and load it. Returns the seconds
+    spent."""
     global _LIB
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -112,24 +133,45 @@ def build() -> float:
     stale = (not os.path.exists(lib_path)
              or os.path.getmtime(lib_path) < max(map(os.path.getmtime, deps)))
     if stale:
-        _emit_poseidon_header(os.path.join(BUILD_DIR, "poseidon_tables.h"))
+        _emit_tables()
+        nvcc = nvcc_path()
+        # one nvcc per source, all started together, then one link; each
+        # compile's register and spill report (-Xptxas -v) is kept beside
+        # its object as <source>.ptxas.txt
+        jobs = []
+        for src in sources:
+            obj = os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-I", BUILD_DIR,
+                   "-I", CSRC_DIR, "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, obj, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n%s\n%s" % (" ".join(cmd),
+                                                             err))
+            with open(obj[:-2] + ".ptxas.txt", "w") as f:
+                f.write(err)
         tmp = lib_path + ".tmp%d" % os.getpid()
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", BUILD_DIR, "-I", CSRC_DIR,
-               "-o", tmp, *sources]
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n%s\n%s" % (" ".join(cmd),
-                                                         proc.stderr))
+            raise RuntimeError("nvcc link failed:\n%s\n%s" % (
+                " ".join(cmd), proc.stderr))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ntt_dit.argtypes = [p, p, ll, i, i, p]
-    lib.poseidon_permute.argtypes = [p, p, ll, p]
-    lib.poseidon_hash_leaves.argtypes = [p, p, i, ll, p]
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    for fn in (lib.ntt_dit, lib.poseidon_permute, lib.poseidon_hash_leaves):
-        fn.restype = i
+    for name in ("poseidon_permute", "poseidon2_permute"):
+        getattr(lib, name).argtypes = [p, p, ll, p]
+    for name in ("poseidon_hash_leaves", "poseidon2_hash_leaves"):
+        getattr(lib, name).argtypes = [p, p, i, ll, p]
+    for name in KERNELS:
+        getattr(lib, name).restype = i
     _LIB = lib
     return time.perf_counter() - t0
 

@@ -4,32 +4,38 @@
 and host objects — the constants/sigmas commitment (coefficients, Merkle
 leaves and digest layers), sigmas, subgroup, representative map, circuit
 digest, generators, public-input targets and the CommonCircuitData — and
-returns the port's CircuitData on `device`. Gates are rebuilt from their ids
-as the port's gates. Nothing here imports JAX: the caller does the JAX ->
-numpy step (GF.to_u64(), MerkleTree.leaves_host(), ...).
+returns the port's CircuitData on `device`. Nothing here imports JAX or the
+JAX package: the caller does the JAX -> numpy step (GF.to_u64(),
+MerkleTree.leaves_host(), ...), and the JAX objects are read by attribute
+and rebuilt as the port's own: the config, FRI parameters and selectors
+field by field, the gates from their ids, the hasher config from its name,
+the generators from their class name and fields. Targets are plain tuples
+in both packages.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import re
 
 import numpy as np
 
-from plonky2_tpu.plonk.circuit_data import (
-    CommonCircuitData, ProverOnlyData, VerifierOnlyData,
-)
-from plonky2_tpu.utils.bits import log2_strict
-
 from .field import goldilocks as gl
+from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
 from .gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
+    _ArithmeticOpGenerator,
 )
-from .gates.poseidon_gate import PoseidonGate
-from .hash.hashers import PoseidonGoldilocksConfig
+from .gates.poseidon_gate import PoseidonGate, PoseidonGenerator
+from .hash.hashers import CONFIGS
 from .hash.merkle import MerkleTree
-from .plonk.circuit_data import CircuitData
+from .iop.generator import ConstantGenerator, RandomValueGenerator
+from .plonk.circuit_data import (
+    CircuitData, CommonCircuitData, ProverOnlyData, SelectorsInfo,
+    VerifierOnlyData,
+)
+from .plonk.config import CircuitConfig
+from .utils.bits import log2_strict
 
 
 def gate_from_id(gate_id: str):
@@ -47,36 +53,90 @@ def gate_from_id(gate_id: str):
     raise NotImplementedError(f"gate not ported: {gate_id}")
 
 
-def circuit_data_from_arrays(common: CommonCircuitData, *,
-                             polynomials: np.ndarray, leaves: np.ndarray,
-                             layers: list, sigmas: np.ndarray,
-                             subgroup: np.ndarray,
+def generator_from(g):
+    """The port's witness generator for a generator of the JAX package."""
+    kind = type(g).__name__
+    if kind == "ConstantGenerator":
+        return ConstantGenerator(g.row, g.constant_index, g.wire_index,
+                                 int(g.constant))
+    if kind == "RandomValueGenerator":
+        return RandomValueGenerator(tuple(g.target), g.rng)
+    if kind == "_ArithmeticOpGenerator":
+        return _ArithmeticOpGenerator(g.row, g.i, int(g.c0), int(g.c1))
+    if kind == "PoseidonGenerator":
+        return PoseidonGenerator(g.row)
+    raise NotImplementedError(f"generator not ported: {kind}")
+
+
+def config_from(c) -> CircuitConfig:
+    f, s = c.fri_config, c.fri_config.reduction_strategy
+    return CircuitConfig(
+        num_wires=c.num_wires, num_routed_wires=c.num_routed_wires,
+        num_constants=c.num_constants, num_challenges=c.num_challenges,
+        zero_knowledge=c.zero_knowledge,
+        max_quotient_degree_factor=c.max_quotient_degree_factor,
+        fri_config=FriConfig(
+            rate_bits=f.rate_bits, cap_height=f.cap_height,
+            proof_of_work_bits=f.proof_of_work_bits,
+            reduction_strategy=FriReductionStrategy(
+                kind=s.kind, arity_bits=s.arity_bits,
+                final_poly_bits=s.final_poly_bits),
+            num_query_rounds=f.num_query_rounds))
+
+
+def common_from(common) -> CommonCircuitData:
+    """The port's CommonCircuitData for the JAX package's."""
+    if common.gc.name not in CONFIGS:
+        raise NotImplementedError(f"hasher config not ported: "
+                                  f"{common.gc.name}")
+    config = config_from(common.config)
+    fp = common.fri_params
+    si = common.selectors_info
+    return CommonCircuitData(
+        config=config,
+        fri_params=FriParams(config=config.fri_config, hiding=fp.hiding,
+                             degree_bits=fp.degree_bits,
+                             reduction_arity_bits=tuple(
+                                 fp.reduction_arity_bits)),
+        gates=[gate_from_id(g.id()) for g in common.gates],
+        selectors_info=SelectorsInfo(
+            selector_indices=list(si.selector_indices),
+            groups=[range(g.start, g.stop) for g in si.groups]),
+        quotient_degree_factor=common.quotient_degree_factor,
+        num_gate_constraints=common.num_gate_constraints,
+        num_constants=common.num_constants,
+        num_public_inputs=common.num_public_inputs,
+        k_is=[int(k) for k in common.k_is],
+        num_partial_products=common.num_partial_products,
+        gc=CONFIGS[common.gc.name],
+    )
+
+
+def circuit_data_from_arrays(common, *, polynomials: np.ndarray,
+                             leaves: np.ndarray, layers: list,
+                             sigmas: np.ndarray, subgroup: np.ndarray,
                              representative_map: np.ndarray,
                              circuit_digest, generators: list,
                              public_inputs: list, device) -> CircuitData:
     """polynomials: uint64 [num_polys, degree] coefficients; leaves: uint64
     [lde_size, num_polys] in bit-reversed row order; layers: uint64 [m, 4]
     digest layers, leaf layer first and cap last."""
-    if common.gc.name != PoseidonGoldilocksConfig.name:
-        raise NotImplementedError(f"hasher config not ported: "
-                                  f"{common.gc.name}")
-    cap_height = common.config.fri_config.cap_height
+    port_common = common_from(common)
+    cap_height = port_common.config.fri_config.cap_height
     tree = MerkleTree(gl.from_u64(leaves, device), cap_height,
+                      port_common.gc.hasher,
                       layers=[gl.from_u64(l, device) for l in layers])
     commitment = PolynomialBatch(
         gl.from_u64(polynomials, device), tree,
         log2_strict(polynomials.shape[-1]),
-        common.config.fri_config.rate_bits)
-    port_common = dataclasses.replace(
-        common, gates=[gate_from_id(g.id()) for g in common.gates],
-        gc=PoseidonGoldilocksConfig)
+        port_common.config.fri_config.rate_bits)
     digest = tuple(int(x) for x in circuit_digest)
     prover_only = ProverOnlyData(
-        generators=list(generators),
+        generators=[generator_from(g) for g in generators],
         constants_sigmas_commitment=commitment,
         sigmas=np.asarray(sigmas, dtype=np.uint64),
         subgroup=np.asarray(subgroup, dtype=np.uint64),
-        public_inputs=list(public_inputs),
+        public_inputs=[tuple(t) for t in public_inputs],
         representative_map=np.asarray(representative_map, dtype=np.int64),
         circuit_digest=digest,
     )

@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from plonky2_tpu.field import reference as ref
+from . import reference as ref
 
 from . import goldilocks as gl
 

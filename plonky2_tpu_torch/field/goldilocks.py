@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plonky2_tpu.field import reference as ref
+from . import reference as ref
 
 ORDER = ref.ORDER
 M32 = 0xFFFFFFFF
@@ -126,6 +126,14 @@ def mul_small(a, c: int):
     assert 0 <= c < 1 << 30
     a0, a1 = _split(a)
     return _reduce_lh(a0 * c, a1 * c)
+
+
+def mat_small(m, s):
+    """Matrix of small constants m [R, C, 1] (0 <= m < 2^20) times lanes
+    s [C, N] -> [R, N]: 32-bit half sums, one reduction."""
+    lo, hi = _split(s)
+    return _reduce_lh((m * lo.unsqueeze(0)).sum(1),
+                      (m * hi.unsqueeze(0)).sum(1))
 
 
 def mul_const(a, c: int):

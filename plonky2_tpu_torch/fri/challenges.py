@@ -3,11 +3,10 @@ reference: plonky2/src/fri/challenges.rs)."""
 
 from __future__ import annotations
 
-from plonky2_tpu.fri.config import FriConfig
-from plonky2_tpu.fri.proof import FriProof
-from plonky2_tpu.fri.structure import FriChallenges, FriOpenings
-
 from ..iop.challenger import Challenger
+from .config import FriConfig
+from .proof import FriProof
+from .structure import FriChallenges, FriOpenings
 
 
 def observe_openings(challenger: Challenger, openings: FriOpenings) -> None:

@@ -1,30 +1,28 @@
-"""PolynomialBatch — the FRI commitment (plonky2_tpu/fri/oracle.py without
-salt; reference fri/oracle.rs from_values:62, from_coeffs:134,
-get_lde_values:474, prove_openings:508 with the final-poly-times-X tweak
-at :547).
+"""PolynomialBatch — the FRI commitment without salt (reference
+fri/oracle.rs from_values:62, from_coeffs:134, get_lde_values:474,
+prove_openings:508 with the final-poly-times-X tweak at :547).
 
 A commit is: iNTT (from values), coset LDE at rate 2^rate_bits (K1), the
-leaf digests hashed straight off the [num, N] LDE columns in natural order
-(K3), then bit-reversed into leaf order, and the compress levels (K2). The
-leaves themselves are the LDE rows in bit-reversed order.
+leaf digests hashed by the hasher straight off the [num, N] LDE columns in
+natural order (K3 or K7), then bit-reversed into leaf order, and the
+compress levels (K2 or K6). The leaves themselves are the LDE rows in
+bit-reversed order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.fri.config import FriParams
-from plonky2_tpu.fri.structure import FriInstanceInfo
-from plonky2_tpu.utils.bits import log2_strict, reverse_bits
-
+from ..field import reference as ref
 from ..field.extension import GF2
-from ..hash import poseidon as ps
 from ..hash.merkle import MerkleTree
 from ..iop.challenger import Challenger
 from ..ops import ntt
 from ..ops.polynomial import divide_by_linear, reduce_polys_base
+from ..utils.bits import log2_strict, reverse_bits
+from .config import FriParams
 from .prover import fri_proof
+from .structure import FriInstanceInfo
 
 
 class PolynomialBatch:
@@ -38,20 +36,20 @@ class PolynomialBatch:
         self.rate_bits = rate_bits
 
     @staticmethod
-    def from_values(values: torch.Tensor, rate_bits: int,
-                    cap_height: int) -> "PolynomialBatch":
+    def from_values(values: torch.Tensor, rate_bits: int, cap_height: int,
+                    hasher) -> "PolynomialBatch":
         return PolynomialBatch.from_coeffs(ntt.ifft(values), rate_bits,
-                                           cap_height)
+                                           cap_height, hasher)
 
     @staticmethod
-    def from_coeffs(coeffs: torch.Tensor, rate_bits: int,
-                    cap_height: int) -> "PolynomialBatch":
+    def from_coeffs(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
+                    hasher) -> "PolynomialBatch":
         lg_n = log2_strict(coeffs.shape[-1])
         lde = ntt.coset_lde(coeffs, rate_bits)                  # [num, N]
         rev = ntt._perm("rev", lde.shape[-1], lde.device)
-        digests = ps.hash_or_noop_columns(lde).index_select(0, rev)
+        digests = hasher.hash_or_noop_columns(lde).index_select(0, rev)
         leaves = lde.t().index_select(0, rev)                   # [N, num]
-        tree = MerkleTree(leaves, cap_height, leaf_digests=digests)
+        tree = MerkleTree(leaves, cap_height, hasher, leaf_digests=digests)
         return PolynomialBatch(coeffs, tree, lg_n, rate_bits)
 
     @property

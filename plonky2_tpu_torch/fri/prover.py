@@ -1,5 +1,5 @@
 """FRI prover: commit/fold layers, proof-of-work grind, query rounds
-(plonky2_tpu/fri/prover.py; reference fri/prover.rs — fri_committed_trees
+(reference fri/prover.rs — fri_committed_trees
 :70-114, fri_proof_of_work:117-161, query rounds :164-218)."""
 
 from __future__ import annotations
@@ -7,19 +7,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plonky2_tpu import native
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.fri.config import FriParams
-from plonky2_tpu.fri.proof import (
-    FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep,
-)
-
+from ..field import reference as ref
 from ..field.extension import GF2
-from ..hash import poseidon as ps
 from ..hash.merkle import MerkleTree
+from ..hash.sponge import SPONGE_RATE, W
 from ..iop.challenger import Challenger
 from ..ops import ntt
 from ..ops.polynomial import horner_fold
+from .config import FriParams
+from .proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
 
 
 def _brv_leaves(values: GF2, arity: int) -> torch.Tensor:
@@ -37,7 +33,8 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
     shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
     cap_height = fri_params.config.cap_height
     for arity_bits in fri_params.reduction_arity_bits:
-        tree = MerkleTree(_brv_leaves(values, 1 << arity_bits), cap_height)
+        tree = MerkleTree(_brv_leaves(values, 1 << arity_bits), cap_height,
+                          challenger.hasher)
         challenger.observe_cap(tree.cap_digests())
         trees.append(tree)
         beta = challenger.get_extension_challenge()
@@ -50,18 +47,19 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
     return trees, final_coeffs
 
 
-def _pow_wave_device(state, witness_pos: int, threshold: int, batch: int,
-                     device) -> int:
-    """Grind on the device through K2 in waves of `batch` candidates; the
-    smallest valid witness of the first wave that has one."""
+def _pow_wave(permute, state, witness_pos: int, threshold: int, batch: int,
+              device) -> int:
+    """Grind in waves of `batch` candidates through the device permutation
+    `permute` (a kernel on a CUDA tensor); the smallest valid witness of the
+    first wave that has one."""
     base = torch.as_tensor(np.asarray(state, dtype=np.uint64).view(np.int64),
                            device=device)
     start = 0
     while True:
-        states = base.expand(batch, ps.W).clone()
+        states = base.expand(batch, W).clone()
         states[:, witness_pos] = torch.arange(start, start + batch,
                                               device=device)
-        r = ps.permute(states)[:, ps.SPONGE_RATE - 1]
+        r = permute(states)[:, SPONGE_RATE - 1]
         hits = torch.nonzero((r >= 0) & (r < threshold))
         if hits.numel():
             return start + int(hits[0, 0])
@@ -69,19 +67,16 @@ def _pow_wave_device(state, witness_pos: int, threshold: int, batch: int,
         assert start < 1 << 40, "PoW grind failed (astronomically unlikely)"
 
 
-def _pow_grind_host(state, witness_pos: int, threshold: int,
+def _pow_grind_host(permute_many, state, witness_pos: int, threshold: int,
                     batch: int) -> int:
-    """Grind through the native C permutation, scalar python without it."""
+    """Grind through a host batch permutation uint64 [n, 12] -> [n, 12]."""
     base = np.asarray(state, dtype=np.uint64)
     start = 0
     while True:
         states = np.tile(base, (batch, 1))
         states[:, witness_pos] = start + np.arange(batch, dtype=np.uint64)
-        out = native.permute_many(states)
-        if out is None:
-            out = np.asarray([ps.permute_host(list(map(int, s)))
-                              for s in states], dtype=np.uint64)
-        hits = np.nonzero(out[:, ps.SPONGE_RATE - 1] < np.uint64(threshold))[0]
+        out = permute_many(states)
+        hits = np.nonzero(out[:, SPONGE_RATE - 1] < np.uint64(threshold))[0]
         if len(hits):
             return start + int(hits[0])
         start += batch
@@ -90,23 +85,29 @@ def _pow_grind_host(state, witness_pos: int, threshold: int,
 
 def fri_proof_of_work(challenger: Challenger, pow_bits: int, device) -> int:
     """Find the smallest witness w whose duplex response has >= pow_bits
-    leading zeros. On a GPU the wave runs through K2; a CPU prover grinds
-    through the host's native permutation, as the JAX prover does on CPU."""
+    leading zeros. On a GPU the wave runs through the hasher's permutation
+    kernel; a CPU prover grinds through the hasher's host batch permutation
+    (the C loop of `host.py`, as the JAX prover does on CPU for Poseidon)."""
+    hasher = challenger.hasher
     state = list(challenger.sponge_state)
     witness_pos = len(challenger.input_buffer)
     for i, x in enumerate(challenger.input_buffer):
         state[i] = x
     threshold = 1 << (64 - pow_bits)
     if torch.device(device).type == "cuda":
-        witness = _pow_wave_device(state, witness_pos, threshold,
-                                   max(256, min(1 << 20, 8 << pow_bits)),
-                                   device)
+        witness = _pow_wave(hasher.permute, state, witness_pos, threshold,
+                            max(256, min(1 << 20, 8 << pow_bits)), device)
     else:
-        witness = _pow_grind_host(state, witness_pos, threshold,
+        witness = _pow_grind_host(hasher.permute_many_host, state,
+                                  witness_pos, threshold,
                                   max(256, min(1 << 16, 2 << pow_bits)))
     challenger.observe_element(witness)
     response = challenger.get_challenge()
-    assert response < threshold
+    if response >= threshold:
+        raise RuntimeError(
+            f"PoW witness {witness} gives response {response:#x} on the "
+            f"host, not below {threshold:#x}: the {hasher.name} grind on "
+            f"{device} disagrees with the host permutation")
     return witness
 
 

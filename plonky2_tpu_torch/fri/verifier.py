@@ -9,15 +9,12 @@ compute_evaluation:22-47, fri_verifier_query_round:168-230).
 
 from __future__ import annotations
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.fri.config import FriParams
-from plonky2_tpu.fri.proof import FriProof
-from plonky2_tpu.fri.structure import (
-    FriChallenges, FriInstanceInfo, FriOpenings,
-)
-from plonky2_tpu.utils.bits import log2_strict, reverse_bits
-
+from ..field import reference as ref
 from ..hash.merkle import verify_merkle_proof_oracle
+from ..utils.bits import log2_strict, reverse_bits
+from .config import FriParams
+from .proof import FriProof
+from .structure import FriChallenges, FriInstanceInfo, FriOpenings
 
 E = tuple[int, int]  # extension element
 
@@ -37,7 +34,7 @@ def fri_verify_proof_of_work(pow_response: int, pow_bits: int) -> None:
 def verify_fri_proof(instance: FriInstanceInfo, openings: FriOpenings,
                      challenges: FriChallenges, initial_merkle_caps,
                      proof: FriProof, params: FriParams,
-                     hasher=None) -> None:
+                     hasher) -> None:
     n = params.lde_size
     fri_verify_proof_of_work(challenges.fri_pow_response,
                              params.config.proof_of_work_bits)
@@ -112,7 +109,7 @@ def compute_evaluation(x: int, x_index_within_coset: int, arity_bits: int,
 
 def _verify_query_round(instance, challenges, reduced_openings,
                         initial_merkle_caps, proof, x_index, n,
-                        round_proof, params: FriParams, hasher=None) -> None:
+                        round_proof, params: FriParams, hasher) -> None:
     # initial tree proofs
     for (evals, merkle_proof), cap in zip(
             round_proof.initial_trees_proof.evals_proofs, initial_merkle_caps):

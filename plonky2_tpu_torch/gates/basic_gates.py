@@ -1,14 +1,13 @@
 """Arithmetic / Constant / PublicInput / Noop gates
-(plonky2_tpu/gates/basic_gates.py; reference arithmetic_base.rs:29,
+(reference arithmetic_base.rs:29,
 constant.rs:25, public_input.rs, noop.rs)."""
 
 from __future__ import annotations
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.iop.generator import ConstantGenerator, SimpleGenerator
-from plonky2_tpu.iop.target import wire
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
+from ..iop.generator import ConstantGenerator, SimpleGenerator
+from ..iop.target import wire
 from .gate import Gate
 
 

@@ -1,5 +1,5 @@
-"""Gate base and evaluation algebras (plonky2_tpu/gates/gate.py; reference
-gates/gate.rs:54 Gate, :325 compute_filter).
+"""Gate base and evaluation algebras (reference gates/gate.rs:54 Gate,
+:325 compute_filter).
 
 A gate writes its constraints once, `eval_unfiltered(alg, ...)`, over an
 algebra:
@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from plonky2_tpu.field import reference as ref
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
 
 UNUSED_SELECTOR = (1 << 32) - 1  # u32::MAX (reference: selectors.rs:14)
 

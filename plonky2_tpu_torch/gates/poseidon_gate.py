@@ -1,6 +1,6 @@
 """PoseidonGate — the width-12 permutation in one row of 135 wires
-(plonky2_tpu/gates/poseidon_gate.py; reference gates/poseidon.rs — wire
-layout :42-99, constraints :418-500, generator :726-845).
+(reference gates/poseidon.rs — wire layout :42-99, constraints :418-500,
+generator :726-845).
 
 Wires: 0..12 inputs | 12..24 outputs | 24 swap | 25..29 deltas |
 29..65 full-round-0 S-box inputs (rounds 1..3) | 65..87 partial S-box inputs
@@ -12,18 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from plonky2_tpu import native
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.hash import poseidon_fast as pf
-from plonky2_tpu.hash.poseidon_constants import (
+from .. import host
+from ..field import goldilocks as gl
+from ..field import reference as ref
+from ..hash import poseidon as ps
+from ..hash import poseidon_fast as pf
+from ..hash.poseidon_constants import (
     HALF_N_FULL_ROUNDS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG, N_PARTIAL_ROUNDS,
     SPONGE_WIDTH,
 )
-from plonky2_tpu.iop.generator import SimpleGenerator
-from plonky2_tpu.iop.target import wire
-
-from ..field import goldilocks as gl
-from ..hash import poseidon as ps
+from ..iop.generator import SimpleGenerator
+from ..iop.target import wire
 from .gate import Gate
 
 W = SPONGE_WIDTH
@@ -138,7 +137,7 @@ class PoseidonGate(Gate):
         """The same constraints, in the same order, on the lanes-layout
         state [12, N] with a Python loop over the rounds."""
         t = ps._tables(wires_rows.device)
-        full = lambda s: ps._mds(ps._sbox(s), t["mds"])
+        full = lambda s: gl.mat_small(t["mds"], ps._sbox(s))
         cons = []
         swap = wires_rows[self.WIRE_SWAP]
         cons.append(gl.mul(swap, gl.sub(swap, gl.const(1, swap.device))))
@@ -210,7 +209,7 @@ class PoseidonGenerator(SimpleGenerator):
         inputs = [witness.get(wire(row, g.wire_input(i))) for i in range(W)]
         swap = witness.get(wire(row, g.WIRE_SWAP))
         assert swap in (0, 1)
-        trace = native.poseidon_generator_trace(inputs, swap)
+        trace = host.poseidon_generator_trace(inputs, swap)
         if trace is None:
             trace = _trace_python(inputs, swap)
         out.extend((wire(row, c), trace[c]) for c in _TRACE_COLS)

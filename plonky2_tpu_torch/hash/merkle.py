@@ -1,8 +1,8 @@
-"""Merkle tree with cap over Poseidon (plonky2_tpu/hash/merkle.py semantics).
+"""Merkle tree with cap (reference: plonky2/src/hash/merkle_tree.rs).
 
-The leaf layer is one batched hash_or_noop (K3), each reduction one batched
-compress of sibling pairs (K2); layer l, node i covers leaves
-[i * 2^l, (i + 1) * 2^l), and the cap is the layer with 2^cap_height nodes.
+The leaf layer is one batched hash_or_noop of the hasher (K3 or K7), each
+reduction one batched compress of sibling pairs (K2 or K6); layer l, node
+i covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer with 2^cap_height nodes.
 Leaves and digest layers stay on the tensor's device; proofs and rows are
 gathered there and copied to the host once per call.
 """
@@ -12,27 +12,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plonky2_tpu.utils.bits import log2_strict
-
 from ..field import goldilocks as gl
-from . import poseidon as ps
+from ..utils.bits import log2_strict
 
 
-def build_layers(leaf_digests: torch.Tensor, cap_height: int) -> list:
+def build_layers(leaf_digests: torch.Tensor, cap_height: int,
+                 hasher) -> list:
     """[N, 4] leaf digests -> digest layers, leaf layer first, cap last."""
     layers = [leaf_digests]
     for _ in range(log2_strict(leaf_digests.shape[0]) - cap_height):
         pairs = layers[-1].reshape(-1, 8)
-        layers.append(ps.compress(pairs[:, :4], pairs[:, 4:]))
+        layers.append(hasher.compress(pairs[:, :4], pairs[:, 4:]))
     return layers
 
 
 class MerkleTree:
-    """leaves: int64 [N, leaf_size]. `leaf_digests` lets a caller that
-    already hashed the leaves (the commit, from the LDE columns) skip that
-    pass; `layers` gives a whole prebuilt tree."""
+    """leaves: int64 [N, leaf_size], hashed by `hasher`. `leaf_digests`
+    lets a caller that already hashed the leaves (the commit, from the LDE
+    columns) skip that pass; `layers` gives a whole prebuilt tree."""
 
-    def __init__(self, leaves: torch.Tensor, cap_height: int,
+    def __init__(self, leaves: torch.Tensor, cap_height: int, hasher,
                  leaf_digests: torch.Tensor | None = None,
                  layers: list | None = None):
         self.lg_n = log2_strict(leaves.shape[0])
@@ -41,8 +40,8 @@ class MerkleTree:
         self.leaves = leaves
         if layers is None:
             if leaf_digests is None:
-                leaf_digests = ps.hash_or_noop(leaves)
-            layers = build_layers(leaf_digests, cap_height)
+                leaf_digests = hasher.hash_or_noop(leaves)
+            layers = build_layers(leaf_digests, cap_height, hasher)
         self.layers = layers
         self._leaves_host = None
 
@@ -76,12 +75,9 @@ class MerkleTree:
 
 
 def verify_merkle_proof_oracle(leaf: list[int], leaf_index: int, cap, proof,
-                               hasher=None) -> bool:
+                               hasher) -> bool:
     """verify_merkle_proof_to_cap (reference: merkle_proofs.rs:42-80) on the
     host; `cap` and `proof` rows are digests or uint64 digest rows."""
-    if hasher is None:
-        from .hashers import POSEIDON
-        hasher = POSEIDON
     digest = hasher.hash_or_noop_oracle(leaf)
     idx = leaf_index
     for sibling in proof:

@@ -1,20 +1,16 @@
-"""Fiat-Shamir challenger: the duplex sponge of plonky2_tpu/iop/challenger.py
-on the host Poseidon (reference: plonky2/src/iop/challenger.rs — observe
+"""Fiat-Shamir challenger: the duplex sponge over the hasher's host
+permutation (reference: plonky2/src/iop/challenger.rs — observe
 buffers inputs and duplexes at RATE; get_challenge pops from the END of the
 squeezed outputs; duplexing overwrites state[0:len(inputs)])."""
 
 from __future__ import annotations
 
-from plonky2_tpu.field import reference as ref
-
-from ..hash.poseidon import SPONGE_RATE, W
+from ..field import reference as ref
+from ..hash.sponge import SPONGE_RATE, W
 
 
 class Challenger:
-    def __init__(self, hasher=None):
-        if hasher is None:
-            from ..hash.hashers import POSEIDON
-            hasher = POSEIDON
+    def __init__(self, hasher):
         self.hasher = hasher
         self.sponge_state: list[int] = [0] * W
         self.input_buffer: list[int] = []

@@ -1,0 +1,135 @@
+"""Witness generators + the fixpoint scheduler.
+
+Reference: plonky2/src/iop/generator.rs — WitnessGenerator trait (watch_list +
+run), generate_partial_witness:26-100 (worklist fixpoint: run all generators,
+re-queue those watching newly-populated representatives, assert completion).
+
+A generator is a host-side object: `watch_list()` returns targets whose
+availability may unblock it; `run(witness)` returns True when done (having
+written its outputs into the witness) or False to be retried once a watched
+partition is populated.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+
+import numpy as np
+
+from ..field import reference as ref
+from .witness import PartialWitness, PartitionWitness
+
+
+class SimpleGenerator:
+    """Runs once, when every dependency is available."""
+
+    def dependencies(self) -> list:
+        raise NotImplementedError
+
+    def run_once(self, witness: PartitionWitness, out: list) -> None:
+        """Append (target, value) pairs to `out`."""
+        raise NotImplementedError
+
+    # -- WitnessGenerator surface
+    def watch_list(self) -> list:
+        return self.deps_cached()
+
+    def deps_cached(self) -> list:
+        """dependencies() is pure but rebuilds its list per call; the
+        fixpoint re-polls blocked generators, so cache it."""
+        deps = getattr(self, "_deps", None)
+        if deps is None:
+            deps = self._deps = self.dependencies()
+        return deps
+
+    def run(self, witness: PartitionWitness, out: list) -> bool:
+        values = witness.values
+        rep = witness.rep_index
+        if all(values[rep(t)] is not None for t in self.deps_cached()):
+            self.run_once(witness, out)
+            return True
+        return False
+
+
+class ConstantGenerator(SimpleGenerator):
+    """Fills one wire with a build-time constant
+    (reference: iop/generator.rs ConstantGenerator)."""
+
+    def __init__(self, row: int, constant_index: int, wire_index: int,
+                 constant: int = 0):
+        self.row = row
+        self.constant_index = constant_index
+        self.wire_index = wire_index
+        self.constant = constant
+
+    def dependencies(self):
+        return []
+
+    def run_once(self, witness, out):
+        out.append((("w", self.row, self.wire_index), self.constant))
+
+
+class RandomValueGenerator(SimpleGenerator):
+    """Fills one target with a uniform random field element
+    (reference: iop/generator.rs RandomValueGenerator)."""
+
+    def __init__(self, target, rng):
+        self.target = target
+        self.rng = rng
+
+    def dependencies(self):
+        return []
+
+    def run_once(self, witness, out):
+        out.append((self.target, int(self.rng.integers(0, ref.ORDER,
+                                                       dtype=np.uint64))))
+
+
+def generate_partial_witness(inputs: PartialWitness, prover_data,
+                             common) -> PartitionWitness:
+    """Worklist fixpoint over generators (reference: generator.rs:26-100)."""
+    witness = PartitionWitness(prover_data.representative_map,
+                               common.config.num_wires, common.degree)
+    generators = prover_data.generators
+
+    # Index generators by the representative of each watched target.
+    watchers: dict[int, list[int]] = defaultdict(list)
+    for gi, g in enumerate(generators):
+        for t in g.watch_list():
+            watchers[witness.rep_index(t)].append(gi)
+
+    newly_set: list[int] = []
+    for t, v in inputs.values.items():
+        r = witness.set(t, v)
+        if r is not None:
+            newly_set.append(r)
+
+    remaining = set(range(len(generators)))
+    # First pass: try everything once (dependency-free generators fire here).
+    queue = list(range(len(generators)))
+    buf: list = []
+    while queue:
+        next_queue: list[int] = []
+        for gi in queue:
+            if gi not in remaining:
+                continue
+            buf.clear()
+            if generators[gi].run(witness, buf):
+                remaining.discard(gi)
+                for t, v in buf:
+                    r = witness.set(t, v)
+                    if r is not None:
+                        newly_set.append(r)
+        # requeue watchers of anything that changed
+        seen = set()
+        for r in newly_set:
+            for gi in watchers.get(r, ()):
+                if gi in remaining and gi not in seen:
+                    seen.add(gi)
+                    next_queue.append(gi)
+        newly_set.clear()
+        queue = next_queue
+
+    assert not remaining, \
+        f"{len(remaining)} generators never ran (missing witness inputs?)"
+    return witness

@@ -17,14 +17,13 @@ from functools import lru_cache
 
 import torch
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.utils.bits import (
-    ifft_reverse_perm, log2_strict, reverse_index_bits_perm,
-)
-
 from .. import backend
 from ..field import goldilocks as gl
+from ..field import reference as ref
 from ..field.extension import GF2
+from ..utils.bits import (
+    ifft_reverse_perm, log2_strict, reverse_index_bits_perm,
+)
 
 MULTIPLICATIVE_GROUP_GENERATOR = ref.MULTIPLICATIVE_GROUP_GENERATOR
 

@@ -6,9 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from plonky2_tpu.field import reference as ref
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
 from ..field.extension import GF2, gf2_powers
 
 

@@ -1,28 +1,23 @@
-"""CircuitBuilder — the core of plonky2_tpu/plonk/circuit_builder.py
-(reference: plonk/circuit_builder.rs — add_gate:445, connect:516,
-find_slot:786, blind_and_pad:884, build:1045-1265) for non-ZK circuits:
-virtual targets, public inputs, connect, constants, arithmetic, the Poseidon
-public-input hash gadget, padding and `build()`.
+"""CircuitBuilder — the builder core (reference: plonk/circuit_builder.rs —
+add_gate:445, connect:516, find_slot:786, blind_and_pad:884,
+build:1045-1265) for non-ZK circuits: virtual targets, public inputs,
+connect, constants, arithmetic, the Poseidon public-input hash gadget,
+padding and `build()`.
 
-`build(device=...)` commits the constants and sigmas on that device; the
-circuit's proofs run there. The builder's numpy generator (`seed`) fills the
-unused public-input-gate wires at prove time, in the reference's order.
+`build(device=...)` commits the constants and sigmas on that device, the
+GPU unless the caller asks for another; the circuit's proofs run there.
+`build(gc=...)` picks the hasher config of the commitments and the
+transcript (`hash/hashers.py` CONFIGS). The builder's numpy generator
+(`seed`) fills the unused public-input-gate wires at prove time, in the
+reference's order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.iop.generator import ConstantGenerator, RandomValueGenerator
-from plonky2_tpu.iop.target import virtual, wire
-from plonky2_tpu.plonk.circuit_data import (
-    CommonCircuitData, ProverOnlyData, SelectorsInfo, VerifierOnlyData,
-)
-from plonky2_tpu.plonk.config import CircuitConfig
-from plonky2_tpu.plonk.permutation import Forest
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
 from ..fri.oracle import PolynomialBatch
 from ..gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
@@ -30,8 +25,15 @@ from ..gates.basic_gates import (
 from ..gates.gate import UNUSED_SELECTOR, Gate
 from ..gates.poseidon_gate import PoseidonGate
 from ..hash.hashers import PoseidonGoldilocksConfig
-from ..hash.poseidon import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
-from .circuit_data import CircuitData
+from ..hash.sponge import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
+from ..iop.generator import ConstantGenerator, RandomValueGenerator
+from ..iop.target import virtual, wire
+from .circuit_data import (
+    CircuitData, CommonCircuitData, ProverOnlyData, SelectorsInfo,
+    VerifierOnlyData,
+)
+from .config import CircuitConfig
+from .permutation import Forest
 
 
 class CircuitBuilder:
@@ -176,7 +178,7 @@ class CircuitBuilder:
             self.add_gate(NoopGate(), [])
 
     # -- build ----------------------------------------------------------------
-    def build(self, *, device, min_degree_bits: int | None = None,
+    def build(self, *, device="cuda", min_degree_bits: int | None = None,
               gc=PoseidonGoldilocksConfig) -> CircuitData:
         config = self.config
         rate_bits = config.fri_config.rate_bits
@@ -236,7 +238,7 @@ class CircuitBuilder:
 
         constants_sigmas = PolynomialBatch.from_values(
             gl.from_u64(np.concatenate([constant_vecs, sigma_vecs]), device),
-            rate_bits, cap_height)
+            rate_bits, cap_height, gc.hasher)
 
         # generators per gate instance, dropping unused batched-op slots
         incomplete = {gate_idx: next_slot

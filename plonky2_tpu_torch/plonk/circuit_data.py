@@ -1,16 +1,145 @@
-"""CircuitData of the port: the shared containers of
-plonky2_tpu/plonk/circuit_data.py (CommonCircuitData, ProverOnlyData,
-VerifierOnlyData) with prove/verify bound to the port's prover and
-verifier. The constants/sigmas commitment in ProverOnlyData is the port's
-PolynomialBatch, and a proof runs on its device."""
+"""Circuit data containers (reference: plonky2/src/plonk/circuit_data.rs —
+CommonCircuitData:415, ProverOnlyCircuitData:336, VerifierOnlyCircuitData:392,
+CircuitData:158 with prove:186 / verify:195). The constants/sigmas
+commitment in ProverOnlyData is the port's PolynomialBatch, and a proof runs
+on its device."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from plonky2_tpu.plonk.circuit_data import (
-    CommonCircuitData, ProverOnlyData, VerifierOnlyData,
+import numpy as np
+
+from ..field import reference as ref
+from ..fri.config import FriParams
+from ..fri.structure import (
+    FriBatchInfo, FriInstanceInfo, FriOracleInfo, FriPolynomialInfo,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectorsInfo:
+    selector_indices: list[int]
+    groups: list[range]
+
+    @property
+    def num_selectors(self) -> int:
+        return len(self.groups)
+
+
+# PlonkOracle indices (reference: plonk/plonk_common.rs:19-40)
+class PlonkOracle:
+    CONSTANTS_SIGMAS = (0, False)
+    WIRES = (1, True)
+    ZS_PARTIAL_PRODUCTS = (2, True)
+    QUOTIENT = (3, True)
+
+
+@dataclasses.dataclass
+class CommonCircuitData:
+    config: "CircuitConfig"
+    fri_params: FriParams
+    gates: list
+    selectors_info: SelectorsInfo
+    quotient_degree_factor: int
+    num_gate_constraints: int
+    num_constants: int
+    num_public_inputs: int
+    k_is: list[int]
+    num_partial_products: int
+    # hashing configuration (reference: the C type parameter of
+    # CircuitData<F, C, D>, plonk/config.rs:115-208)
+    gc: "GenericConfig"
+
+    @property
+    def degree_bits(self) -> int:
+        return self.fri_params.degree_bits
+
+    @property
+    def degree(self) -> int:
+        return 1 << self.degree_bits
+
+    # ranges into the committed batches (reference: circuit_data.rs:495-520)
+    @property
+    def constants_range(self) -> range:
+        return range(0, self.num_constants)
+
+    @property
+    def sigmas_range(self) -> range:
+        return range(self.num_constants,
+                     self.num_constants + self.config.num_routed_wires)
+
+    @property
+    def zs_range(self) -> range:
+        return range(0, self.config.num_challenges)
+
+    @property
+    def partial_products_range(self) -> range:
+        return range(self.config.num_challenges,
+                     (self.num_partial_products + 1) * self.config.num_challenges)
+
+    @property
+    def num_preprocessed_polys(self) -> int:
+        return self.sigmas_range.stop
+
+    @property
+    def num_zs_partial_products_polys(self) -> int:
+        return self.config.num_challenges * (1 + self.num_partial_products)
+
+    @property
+    def num_quotient_polys(self) -> int:
+        return self.config.num_challenges * self.quotient_degree_factor
+
+    def get_fri_instance(self, zeta) -> FriInstanceInfo:
+        """All polys at zeta; Z polys also at g*zeta
+        (reference: circuit_data.rs:526-546)."""
+        zeta_batch = FriBatchInfo(point=tuple(zeta),
+                                  polynomials=tuple(self._fri_all_polys()))
+        g = ref.primitive_root_of_unity(self.degree_bits)
+        zeta_next = ref.ext2_scalar_mul(zeta, g)
+        zeta_next_batch = FriBatchInfo(
+            point=tuple(zeta_next),
+            polynomials=tuple(FriPolynomialInfo.from_range(
+                PlonkOracle.ZS_PARTIAL_PRODUCTS[0],
+                self.zs_range.start, self.zs_range.stop)))
+        return FriInstanceInfo(oracles=tuple(self._fri_oracles()),
+                               batches=(zeta_batch, zeta_next_batch))
+
+    def _fri_oracles(self):
+        return [
+            FriOracleInfo(num_polys=self.num_preprocessed_polys,
+                          blinding=PlonkOracle.CONSTANTS_SIGMAS[1]),
+            FriOracleInfo(num_polys=self.config.num_wires,
+                          blinding=PlonkOracle.WIRES[1]),
+            FriOracleInfo(num_polys=self.num_zs_partial_products_polys,
+                          blinding=PlonkOracle.ZS_PARTIAL_PRODUCTS[1]),
+            FriOracleInfo(num_polys=self.num_quotient_polys,
+                          blinding=PlonkOracle.QUOTIENT[1]),
+        ]
+
+    def _fri_all_polys(self):
+        return (FriPolynomialInfo.from_range(0, 0, self.num_preprocessed_polys)
+                + FriPolynomialInfo.from_range(1, 0, self.config.num_wires)
+                + FriPolynomialInfo.from_range(
+                    2, 0, self.num_zs_partial_products_polys)
+                + FriPolynomialInfo.from_range(3, 0, self.num_quotient_polys))
+
+
+@dataclasses.dataclass
+class ProverOnlyData:
+    generators: list
+    constants_sigmas_commitment: "PolynomialBatch"
+    sigmas: np.ndarray              # uint64 [num_routed_wires, degree]
+    subgroup: np.ndarray            # uint64 [degree]
+    public_inputs: list
+    representative_map: np.ndarray  # int64 flat target index -> rep index
+    circuit_digest: tuple
+
+
+@dataclasses.dataclass
+class VerifierOnlyData:
+    constants_sigmas_cap: list
+    circuit_digest: tuple
 
 
 @dataclasses.dataclass

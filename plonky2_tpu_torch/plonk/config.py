@@ -1,0 +1,31 @@
+"""Circuit configuration (reference: plonky2/src/plonk/circuit_data.rs:59-116)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..fri.config import FriConfig, FriReductionStrategy
+
+
+@dataclasses.dataclass(frozen=True)
+class CircuitConfig:
+    num_wires: int = 135
+    num_routed_wires: int = 80
+    num_constants: int = 2
+    num_challenges: int = 2
+    zero_knowledge: bool = False
+    max_quotient_degree_factor: int = 8
+    fri_config: FriConfig = dataclasses.field(default_factory=FriConfig)
+
+    @staticmethod
+    def standard_recursion_config() -> "CircuitConfig":
+        """reference: circuit_data.rs:98-116."""
+        return CircuitConfig(
+            fri_config=FriConfig(
+                rate_bits=3,
+                cap_height=4,
+                proof_of_work_bits=16,
+                reduction_strategy=FriReductionStrategy(
+                    kind="constant_arity", arity_bits=4, final_poly_bits=5),
+                num_query_rounds=28,
+            ))

@@ -4,11 +4,10 @@ plonky2/src/plonk/get_challenges.rs:25-90)."""
 
 from __future__ import annotations
 
-from plonky2_tpu.plonk.circuit_data import CommonCircuitData
-from plonky2_tpu.plonk.proof import ProofChallenges, ProofWithPublicInputs
-
 from ..fri.challenges import fri_challenges, observe_openings
 from ..iop.challenger import Challenger
+from .circuit_data import CommonCircuitData
+from .proof import ProofChallenges, ProofWithPublicInputs
 
 
 def get_challenges(proof_with_pis: ProofWithPublicInputs,

@@ -1,12 +1,12 @@
-"""PLONK prover, five rounds (plonky2_tpu/plonk/prover.py; reference
-plonk/prover.rs:104-355).
+"""PLONK prover, five rounds (reference plonk/prover.rs:104-355).
 
-Witness generation is the shared host fixpoint (plonky2_tpu/iop/generator.py).
-Round 1 commits the wires, round 2 the permutation Z and partial products
-(an exclusive product scan over the rows), round 3 the quotient (every
+Witness generation is the host fixpoint of `iop/generator.py`. Round 1
+commits the wires, round 2 the permutation Z and partial products (an
+exclusive product scan over the rows), round 3 the quotient (every
 constraint over the whole LDE grid, then a coset iNTT), round 4 opens all
 polynomials at zeta and g*zeta, round 5 is FRI. Every tensor lives on the
-device of the circuit's committed constants.
+device of the circuit's committed constants; every commit and the FRI trees
+hash with the config's hasher.
 """
 
 from __future__ import annotations
@@ -14,16 +14,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.iop.generator import generate_partial_witness
-from plonky2_tpu.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
 from ..field.extension import GF2, gf2_powers
 from ..fri.challenges import observe_openings
 from ..fri.oracle import PolynomialBatch
 from ..iop.challenger import Challenger
+from ..iop.generator import generate_partial_witness
 from ..ops import ntt
+from .proof import OpeningSet, Proof, ProofWithPublicInputs
 from .vanishing import evaluate_gate_constraints_rows
 
 
@@ -33,6 +32,7 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
     nc = config.num_challenges
     rate_bits, cap_height = fri_config.rate_bits, fri_config.cap_height
     device = prover_data.constants_sigmas_commitment.polynomials.device
+    hasher = common.gc.hasher
 
     witness = generate_partial_witness(inputs, prover_data, common)
     public_inputs = [witness.get(t) for t in prover_data.public_inputs]
@@ -41,8 +41,8 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
 
     # round 1: wires
     wires_commitment = PolynomialBatch.from_values(wires, rate_bits,
-                                                   cap_height)
-    challenger = Challenger(common.gc.hasher)
+                                                   cap_height, hasher)
+    challenger = Challenger(hasher)
     challenger.observe_hash(prover_data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
     challenger.observe_cap(wires_commitment.merkle_tree.cap_digests())
@@ -59,7 +59,8 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
         zs.append(z.unsqueeze(0))
         pps.append(pp)
     zs_pp_commitment = PolynomialBatch.from_values(torch.cat(zs + pps),
-                                                   rate_bits, cap_height)
+                                                   rate_bits, cap_height,
+                                                   hasher)
     challenger.observe_cap(zs_pp_commitment.merkle_tree.cap_digests())
     alphas = challenger.get_n_challenges(nc)
 
@@ -68,7 +69,8 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
         common, prover_data, public_inputs_hash, wires_commitment,
         zs_pp_commitment, betas, gammas, alphas)
     quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks,
-                                                      rate_bits, cap_height)
+                                                      rate_bits, cap_height,
+                                                      hasher)
     challenger.observe_cap(quotient_commitment.merkle_tree.cap_digests())
 
     # round 4: openings at zeta and g * zeta

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from plonky2_tpu.field import reference as ref
-
 from ..field import goldilocks as gl
+from ..field import reference as ref
 from ..gates.gate import EXT, GFAlgebra, compute_filter
 
 

@@ -3,15 +3,12 @@ reference: plonky2/src/plonk/verifier.rs:17-120)."""
 
 from __future__ import annotations
 
-from plonky2_tpu.field import reference as ref
-from plonky2_tpu.plonk.circuit_data import (
-    CommonCircuitData, VerifierOnlyData,
-)
-from plonky2_tpu.plonk.proof import ProofWithPublicInputs
-from plonky2_tpu.plonk.validate_shape import validate_proof_with_pis_shape
-
+from ..field import reference as ref
 from ..fri.verifier import verify_fri_proof
+from .circuit_data import CommonCircuitData, VerifierOnlyData
 from .get_challenges import get_challenges
+from .proof import ProofWithPublicInputs
+from .validate_shape import validate_proof_with_pis_shape
 from .vanishing import eval_vanishing_poly_at_zeta
 
 

@@ -1,25 +1,25 @@
-"""Dummy circuits and proofs (plonky2_tpu/recursion/dummy.py:21-70;
-reference recursion/dummy_circuit.rs): a NoopGate-padded circuit of a given
-degree with unconstrained public inputs — the base proof of a recursion
+"""Dummy circuits and proofs (reference recursion/dummy_circuit.rs): a
+NoopGate-padded circuit of a given degree with unconstrained public inputs — the base proof of a recursion
 chain, and a circuit whose kernels run at the full size of its degree."""
 
 from __future__ import annotations
 
-from plonky2_tpu.iop.witness import PartialWitness
-from plonky2_tpu.plonk.config import CircuitConfig
-
+from ..hash.hashers import PoseidonGoldilocksConfig
+from ..iop.witness import PartialWitness
 from ..plonk.circuit_builder import CircuitBuilder
 from ..plonk.circuit_data import CircuitData
+from ..plonk.config import CircuitConfig
 
 
 def dummy_circuit(config: CircuitConfig, degree_bits: int,
-                  num_public_inputs: int, *, device
-                  ) -> tuple[CircuitData, list]:
-    """Returns (data, pi_targets)."""
+                  num_public_inputs: int, *, device="cuda",
+                  gc=PoseidonGoldilocksConfig) -> tuple[CircuitData, list]:
+    """Returns (data, pi_targets); the circuit is committed on `device`
+    under the hasher config `gc`."""
     builder = CircuitBuilder(config)
     pis = builder.add_virtual_targets(num_public_inputs)
     builder.register_public_inputs(pis)
-    data = builder.build(device=device, min_degree_bits=degree_bits)
+    data = builder.build(device=device, min_degree_bits=degree_bits, gc=gc)
     assert data.common.degree_bits == degree_bits, \
         f"dummy circuit degree {data.common.degree_bits} != {degree_bits}"
     return data, pis

@@ -1,0 +1,159 @@
+"""Proof bytes (reference: plonky2/src/util/serialization/mod.rs — Buffer:2166,
+write_proof / read_proof). Layout follows the reference's conventions: u64
+LE field elements, a u8 sibling count before each Merkle proof, every other
+shape taken from CommonCircuitData. Digests are 4 field elements (the
+Poseidon and Poseidon2 configs)."""
+
+from __future__ import annotations
+
+import io
+import struct
+
+import numpy as np
+
+from ..field import reference as ref
+from ..fri.proof import (
+    FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep,
+)
+from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
+
+
+class Buffer:
+    def __init__(self, data: bytes = b""):
+        self._r = io.BytesIO(data)
+        self._w = io.BytesIO() if not data else None
+
+    # -- writing ---------------------------------------------------------------
+    def write_u8(self, x: int):
+        self._w.write(struct.pack("<B", x))
+
+    def write_field(self, x: int):
+        self._w.write(struct.pack("<Q", x % ref.ORDER))
+
+    def write_field_vec(self, xs):
+        for x in xs:
+            self.write_field(int(x))
+
+    def write_ext_vec(self, xs):
+        for x in xs:
+            self.write_field(int(x[0]))
+            self.write_field(int(x[1]))
+
+    def write_cap(self, cap):
+        for h in cap:
+            self.write_field_vec(h)
+
+    def bytes(self) -> bytes:
+        return self._w.getvalue()
+
+    # -- reading ---------------------------------------------------------------
+    def read_u8(self) -> int:
+        return struct.unpack("<B", self._r.read(1))[0]
+
+    def read_field(self) -> int:
+        return struct.unpack("<Q", self._r.read(8))[0]
+
+    def read_field_vec(self, n) -> list:
+        return [self.read_field() for _ in range(n)]
+
+    def read_ext_vec(self, n) -> list:
+        return [(self.read_field(), self.read_field()) for _ in range(n)]
+
+    def read_cap(self, cap_height: int) -> list:
+        return [tuple(self.read_field_vec(4)) for _ in range(1 << cap_height)]
+
+
+def serialize_proof_with_pis(pwp: ProofWithPublicInputs, common) -> bytes:
+    buf = Buffer()
+    p = pwp.proof
+    buf.write_cap(p.wires_cap)
+    buf.write_cap(p.plonk_zs_partial_products_cap)
+    buf.write_cap(p.quotient_polys_cap)
+    o = p.openings
+    for vec in (o.constants, o.plonk_sigmas, o.wires, o.plonk_zs,
+                o.plonk_zs_next, o.partial_products, o.quotient_polys):
+        buf.write_ext_vec(vec)
+    _write_fri_proof(buf, p.opening_proof)
+    buf.write_field_vec(pwp.public_inputs)
+    return buf.bytes()
+
+
+def deserialize_proof_with_pis(data: bytes, common) -> ProofWithPublicInputs:
+    buf = Buffer(data)
+    ch = common.config.fri_config.cap_height
+    wires_cap = buf.read_cap(ch)
+    zs_pp_cap = buf.read_cap(ch)
+    quotient_cap = buf.read_cap(ch)
+    o = OpeningSet(
+        constants=buf.read_ext_vec(len(common.constants_range)),
+        plonk_sigmas=buf.read_ext_vec(len(common.sigmas_range)),
+        wires=buf.read_ext_vec(common.config.num_wires),
+        plonk_zs=buf.read_ext_vec(len(common.zs_range)),
+        plonk_zs_next=buf.read_ext_vec(len(common.zs_range)),
+        partial_products=buf.read_ext_vec(len(common.partial_products_range)),
+        quotient_polys=buf.read_ext_vec(common.num_quotient_polys),
+    )
+    num_leaves = [common.num_preprocessed_polys, common.config.num_wires,
+                  common.num_zs_partial_products_polys,
+                  common.num_quotient_polys]
+    opening_proof = _read_fri_proof(buf, common.fri_params, num_leaves)
+    public_inputs = buf.read_field_vec(common.num_public_inputs)
+    return ProofWithPublicInputs(
+        proof=Proof(wires_cap=wires_cap,
+                    plonk_zs_partial_products_cap=zs_pp_cap,
+                    quotient_polys_cap=quotient_cap,
+                    openings=o, opening_proof=opening_proof),
+        public_inputs=public_inputs)
+
+
+def _write_merkle_proof(buf: Buffer, sibs) -> None:
+    """u8 sibling count, then the sibling digests (reference:
+    serialization/mod.rs:1467 write_merkle_proof)."""
+    n = len(sibs)
+    assert n < 256, "Merkle proof length must fit in u8"
+    buf.write_u8(n)
+    buf.write_cap(sibs)
+
+
+def _write_fri_proof(buf: Buffer, fp: FriProof) -> None:
+    for cap in fp.commit_phase_merkle_caps:
+        buf.write_cap(cap)
+    for qr in fp.query_round_proofs:
+        for evals, sibs in qr.initial_trees_proof.evals_proofs:
+            buf.write_field_vec([int(x) for x in evals])
+            _write_merkle_proof(buf, sibs)
+        for step in qr.steps:
+            buf.write_ext_vec(step.evals)
+            _write_merkle_proof(buf, step.merkle_proof)
+    buf.write_ext_vec(fp.final_poly)
+    buf.write_field(int(fp.pow_witness))
+
+
+def _read_fri_proof(buf: Buffer, fri_params, num_leaves_per_oracle):
+    cap_height = fri_params.config.cap_height
+    caps = [buf.read_cap(cap_height)
+            for _ in fri_params.reduction_arity_bits]
+
+    def read_merkle_proof():
+        k = buf.read_u8()
+        return np.asarray(buf.read_field_vec(4 * k),
+                          dtype=np.uint64).reshape(k, 4)
+
+    rounds = []
+    for _ in range(fri_params.config.num_query_rounds):
+        evals_proofs = []
+        for n_leaves in num_leaves_per_oracle:
+            evals = np.asarray(buf.read_field_vec(n_leaves), dtype=np.uint64)
+            evals_proofs.append((evals, read_merkle_proof()))
+        steps = []
+        for arity_bits in fri_params.reduction_arity_bits:
+            evals = buf.read_ext_vec(1 << arity_bits)
+            steps.append(FriQueryStep(evals=evals,
+                                      merkle_proof=read_merkle_proof()))
+        rounds.append(FriQueryRound(
+            initial_trees_proof=FriInitialTreeProof(evals_proofs=evals_proofs),
+            steps=steps))
+    final_poly = buf.read_ext_vec(fri_params.final_poly_len)
+    pow_witness = buf.read_field()
+    return FriProof(commit_phase_merkle_caps=caps, query_round_proofs=rounds,
+                    final_poly=final_poly, pow_witness=pow_witness)

@@ -18,6 +18,7 @@ from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.field.extension import GF2
 from plonky2_tpu_torch.fri import prover as fri
 from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+from plonky2_tpu_torch.hash.hashers import POSEIDON
 from plonky2_tpu_torch.iop.challenger import Challenger
 from plonky2_tpu_torch.ops import ntt
 from plonky2_tpu_torch.ops import polynomial as poly
@@ -47,7 +48,7 @@ def test_commit_vs_jax(num, lg_n):
     values = _rand(num, 1 << lg_n)
     cap_height = min(4, lg_n + 3)
     ours = PolynomialBatch.from_values(gl.from_u64(values, "cpu"), 3,
-                                       cap_height)
+                                       cap_height, POSEIDON)
     theirs = JPolynomialBatch.from_values(GF.from_u64(values), 3, False,
                                           cap_height)
     np.testing.assert_array_equal(gl.to_u64(ours.polynomials),
@@ -99,7 +100,7 @@ def test_fold_layer_and_leaves_vs_jax():
 def test_pow_wave_takes_smallest_witness():
     """The wave (K2's plain version on CPU) and the JAX grind find the same
     witness for the same transcript state; 6 bits, waves of 64."""
-    ours, theirs = Challenger(), JChallenger()
+    ours, theirs = Challenger(POSEIDON), JChallenger()
     for x in _rand(11):
         ours.observe_element(int(x))
         theirs.observe_element(int(x))
@@ -107,8 +108,24 @@ def test_pow_wave_takes_smallest_witness():
     for i, x in enumerate(ours.input_buffer):
         state[i] = x
     threshold = 1 << (64 - 6)
-    got = fri._pow_wave_device(state, len(ours.input_buffer), threshold, 64,
-                               "cpu")
+    got = fri._pow_wave(POSEIDON.permute, state, len(ours.input_buffer),
+                        threshold, 64, "cpu")
     assert got == jfri.fri_proof_of_work(theirs, 6, batch=64)
-    assert got == fri._pow_grind_host(state, len(ours.input_buffer),
-                                      threshold, 64)
+    assert got == fri._pow_grind_host(POSEIDON.permute_many_host, state,
+                                      len(ours.input_buffer), threshold, 64)
+
+
+def test_poseidon2_pow_wave_and_host_grind_take_smallest_witness():
+    """Under Poseidon2 the wave (K6's plain version on CPU) and the host C
+    grind find the first witness the python oracle accepts; 6 bits."""
+    from plonky2_tpu_torch.hash import poseidon2 as ps2
+    from plonky2_tpu_torch.hash.hashers import POSEIDON2
+    state = [int(x) for x in _rand(12)]
+    pos, threshold = 3, 1 << (64 - 6)
+    want = next(w for w in range(1 << 12)
+                if ps2.poseidon2_oracle(state[:pos] + [w] + state[pos + 1:])[7]
+                < threshold)
+    assert fri._pow_wave(POSEIDON2.permute, state, pos, threshold, 64,
+                         "cpu") == want
+    assert fri._pow_grind_host(POSEIDON2.permute_many_host, state, pos,
+                               threshold, 64) == want

@@ -1,19 +1,26 @@
-"""The port runs without JAX: in a subprocess where `import jax` fails,
-import plonky2_tpu_torch, then build, prove and verify fib(21) on the CPU,
-and check that no JAX module was loaded. This is what lets chip_smoke.py
-run on a machine with no JAX."""
+"""The port stands alone: in a subprocess where `import jax` and `import
+plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
+verify fib(21) on the CPU under both ported hasher configs, and check that
+no module of JAX or of the JAX package was loaded. An AST scan checks that
+no module of the port, and not chip_smoke.py, imports either. This is what
+lets chip_smoke.py run on a machine with no JAX."""
 
+import ast
 import os
 import subprocess
 import sys
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["plonky2_tpu"] = None
 import plonky2_tpu_torch
-from plonky2_tpu.iop.witness import PartialWitness
-from plonky2_tpu.plonk.config import CircuitConfig
+from plonky2_tpu_torch.hash.hashers import CONFIGS
+from plonky2_tpu_torch.iop.witness import PartialWitness
 from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+from plonky2_tpu_torch.plonk.config import CircuitConfig
 
 builder = CircuitBuilder(CircuitConfig.standard_recursion_config(), seed=7)
 a, b = builder.add_virtual_target(), builder.add_virtual_target()
@@ -22,7 +29,7 @@ for _ in range(20):
     prev, cur = cur, builder.add(prev, cur)
 for t in (a, b, cur):
     builder.register_public_input(t)
-data = builder.build(device="cpu")
+data = builder.build(device="cpu", gc=CONFIGS[sys.argv[1]])
 pw = PartialWitness()
 pw.set_target(a, 0)
 pw.set_target(b, 1)
@@ -30,16 +37,48 @@ proof = data.prove(pw)
 data.verify(proof)
 assert proof.public_inputs[2] == 10946, proof.public_inputs
 loaded = [m for m, mod in sys.modules.items()
-          if m.split(".")[0] in ("jax", "jaxlib") and mod is not None]
+          if m.split(".")[0] in ("jax", "jaxlib", "plonky2_tpu")
+          and mod is not None]
 assert not loaded, loaded
 print("NOJAX_OK")
 """
 
 
-def test_port_proves_and_verifies_with_jax_blocked():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
-                          capture_output=True, text=True, timeout=600)
+def _prove_blocked(config):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_port_proves_and_verifies_with_jax_blocked():
+    _prove_blocked("PoseidonGoldilocksConfig")
+
+
+def test_port_proves_poseidon2_with_jax_blocked():
+    _prove_blocked("Poseidon2GoldilocksConfig")
+
+
+def _imported_roots(path):
+    """Top-level package of every absolute import in a Python source."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f)
+           if m in ("jax", "jaxlib", "plonky2_tpu")]
+    assert not bad, bad

@@ -18,6 +18,7 @@ from plonky2_tpu.hash import poseidon as jps
 from plonky2_tpu.hash.merkle import MerkleTree as JMerkleTree
 from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.hash import poseidon as ps
+from plonky2_tpu_torch.hash.hashers import POSEIDON
 from plonky2_tpu_torch.hash.merkle import (
     MerkleTree, verify_merkle_proof_oracle,
 )
@@ -57,9 +58,10 @@ def test_leaf_sponge_vs_jax(L):
 
 def test_host_oracles():
     x = [int(v) for v in _rand(21)]
-    assert ps.hash_no_pad_host(x) == jps.hash_no_pad_oracle(x)
-    assert ps.hash_or_noop_host(x[:3]) == jps.hash_or_noop_oracle(x[:3])
-    assert ps.compress_host(x[:4], x[4:8]) == \
+    assert list(POSEIDON.hash_no_pad_oracle(x)) == jps.hash_no_pad_oracle(x)
+    assert list(POSEIDON.hash_or_noop_oracle(x[:3])) == \
+        jps.hash_or_noop_oracle(x[:3])
+    assert list(POSEIDON.two_to_one_oracle(x[:4], x[4:8])) == \
         jps.compress_oracle(x[:4], x[4:8])
     left, right = _rand(7, 4), _rand(7, 4)
     got = gl.to_u64(ps.compress(gl.from_u64(left, "cpu"),
@@ -73,7 +75,7 @@ def test_host_oracles():
 def test_merkle_vs_jax(lg_n):
     cap_height = min(4, lg_n)
     leaves = _rand(1 << lg_n, 135)
-    tree = MerkleTree(gl.from_u64(leaves, "cpu"), cap_height)
+    tree = MerkleTree(gl.from_u64(leaves, "cpu"), cap_height, POSEIDON)
     jtree = JMerkleTree(GF.from_u64(leaves), cap_height)
     assert tree.cap_digests() == jtree.cap_digests()
     idx = list(range(1 << lg_n))
@@ -83,22 +85,22 @@ def test_merkle_vs_jax(lg_n):
     for i in (0, (1 << lg_n) - 1):
         leaf = [int(v) for v in leaves[i]]
         assert verify_merkle_proof_oracle(leaf, i, tree.cap_digests(),
-                                          proofs[i])
+                                          proofs[i], POSEIDON)
         leaf[0] = (leaf[0] + 1) % ref.ORDER
         assert not verify_merkle_proof_oracle(leaf, i, tree.cap_digests(),
-                                              proofs[i])
+                                              proofs[i], POSEIDON)
 
 
 @pytest.mark.parametrize("swap", [0, 1])
 def test_poseidon_gate_trace_python_matches_native(swap):
-    """The PoseidonGate witness row without a C compiler equals the native
+    """The PoseidonGate witness row without a C compiler equals the host C
     trace the generator uses when one is present."""
-    from plonky2_tpu import native
+    from plonky2_tpu_torch import host
     from plonky2_tpu_torch.gates.poseidon_gate import (
         _TRACE_COLS, _trace_python,
     )
     inputs = [int(v) for v in _rand(12)]
-    trace = native.poseidon_generator_trace(inputs, swap)
+    trace = host.poseidon_generator_trace(inputs, swap)
     if trace is None:
         pytest.skip("no C compiler for the native trace")
     got = _trace_python(inputs, swap)
