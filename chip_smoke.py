@@ -32,7 +32,6 @@ import copy
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -47,21 +46,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 P2 = "Poseidon2GoldilocksConfig"
 
-# H100 SXM: HBM bytes/s (NVIDIA data sheet), the 32-bit integer
-# multiply-add rate of one SM per clock (64 INT32 lanes), and the
-# instructions one SM issues per clock (4 schedulers x 32 lanes)
+# H100 SXM: HBM bytes/s (NVIDIA data sheet) and the 32-bit integer
+# multiply-add rate of one SM per clock (64 INT32 lanes)
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 IMAD_PER_SM_CLK = 64
-ISSUE_PER_SM_CLK = 128
-# trip counts of the loops the compiler keeps inside each permutation
-# kernel: K2 runs its 22 partial rounds as 11 iterations of 2 (unroll 2);
-# K6 is fully unrolled
-PERMUTE_LOOP_TRIPS = {"poseidon_permute": [11], "poseidon2_permute": []}
-SASS_FUNCTION = {"poseidon_permute": "permute_kernel",
-                 "poseidon2_permute": "permute2_kernel"}
-FIELD_MULS = {"poseidon_permute": 570, "poseidon2_permute": 736}
-# a 64 x 64 -> 128-bit product takes at least four 32-bit partial products
+# general (full 64-bit) field multiplies per permutation, from the
+# algorithm. Poseidon: the x^7 S-boxes, 4 multiplies each, of 8 full rounds
+# x 12 and 22 partial rounds x 1; its MDS constants are below 2^6 (shifts
+# and adds), so it has no other. Poseidon2: the same S-boxes in 8 full
+# rounds x 12 and 22 internal rounds x 1, plus the 22 x 12 products by the
+# full 64-bit internal diagonal
+FIELD_MULS = {"poseidon_permute": (8 * 12 + 22) * 4,
+              "poseidon2_permute": (8 * 12 + 22) * 4 + 22 * 12}
+# a 64 x 64 -> 128-bit product takes at least four 32-bit partial products;
+# the Goldilocks reduction takes shifts and adds only
 MIN_IMAD_PER_FIELD_MUL = 4
 
 
@@ -238,80 +237,12 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return max(abs(int(ua[i]) - int(ub[i])) for i in diff)
 
 
-def _sass_counts(obj: str, function: str, trips: list) -> tuple:
-    """(32-bit integer multiply-adds (IMAD*, IMUL*), all instructions) one
-    thread of `function` executes, from `cuobjdump -sass` of its object: the
-    static count, plus (trips - 1) times the count inside each loop (a
-    backward branch and the instructions from its target to it)."""
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                             "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
-                          text=True, check=True).stdout
-    body, inside = [], False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = function + "E" in line       # the mangled name
-            continue
-        if inside:
-            body.append(line)
-    insts, labels = [], {}
-    for line in body:
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            labels[m.group(1)] = len(insts)
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
-                     r"(.*)", line)
-        if m:
-            insts.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    if not insts:
-        raise RuntimeError(f"no SASS for {function} in {obj}")
-    addr_index = {a: i for i, (a, _, _) in enumerate(insts)}
-    is_mul = [op.startswith(("IMAD", "IMUL")) for _, op, _ in insts]
-    loops = []
-    for i, (_, op, rest) in enumerate(insts):
-        if not op.startswith("BRA"):
-            continue
-        m = re.search(r"\(?(\.L_x_\d+)\)?", rest)
-        if m and m.group(1) in labels:
-            target = labels[m.group(1)]
-        else:
-            m = re.search(r"0x([0-9a-f]+)", rest)
-            target = addr_index.get(int(m.group(1), 16)) if m else None
-        if target is not None and target < i:
-            loops.append((sum(is_mul[target:i + 1]), i + 1 - target))
-    if len(loops) != len(trips):
-        raise RuntimeError(f"{function}: {len(loops)} loops in SASS, "
-                           f"expected {len(trips)}")
-    extra = [(t - 1) * m for t, (m, _) in zip(trips, loops)]
-    extra_insts = [(t - 1) * n for t, (_, n) in zip(trips, loops)]
-    return sum(is_mul) + sum(extra), len(insts) + sum(extra_insts)
-
-
-def _bounds(build_dir: str, clock_mhz: float) -> dict:
-    """Per-permutation IMAD counts of K2 and K6 from their SASS, and the
-    card's IMAD rate at the clock nvidia-smi reads. Also logs all the
-    instructions per permutation and their issue time at 2^19 states."""
-    rate = SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6
-    per_perm = {}
-    for name, src in (("poseidon_permute", "poseidon.cu"),
-                      ("poseidon2_permute", "poseidon2.cu")):
-        per_perm[name], insts = _sass_counts(
-            os.path.join(build_dir, src + ".o"), SASS_FUNCTION[name],
-            PERMUTE_LOOP_TRIPS[name])
-        issue_ms = insts * 2**19 / (SMS * ISSUE_PER_SM_CLK * clock_mhz
-                                    * 1e6) * 1e3
-        log(f"{name}: {per_perm[name]} IMAD and {insts} instructions per "
-            f"permutation (SASS), {FIELD_MULS[name]} field multiplies; "
-            f"2^19 states: IMAD bound "
-            f"{per_perm[name] * 2**19 / rate * 1e3:.4f} ms, issue bound "
-            f"{issue_ms:.4f} ms")
-    return {"rate": rate, "per_perm": per_perm}
-
-
-def _bound(name: str, shape, bounds) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    IMADs over the card's IMAD rate."""
+def _bound(name: str, shape, clock_mhz: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes the function moves over
+    HBM bandwidth and the 32-bit multiply-adds its field multiplies need
+    (MIN_IMAD_PER_FIELD_MUL each) over the card's IMAD rate at `clock_mhz`.
+    Adds, reductions and small-constant products are not counted: a
+    floor."""
     if name == "ntt_dit":
         batch, lg_n, start = shape
         n = 1 << lg_n
@@ -319,20 +250,21 @@ def _bound(name: str, shape, bounds) -> tuple:
         imads = MIN_IMAD_PER_FIELD_MUL * batch * (lg_n - start) * (n // 2)
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
-        imads = bounds["per_perm"][name] * shape[0]
+        imads = FIELD_MULS[name] * MIN_IMAD_PER_FIELD_MUL * shape[0]
     else:
         L, n = shape
         perm = name.replace("hash_leaves", "permute")
         nbytes = 8 * (L * n + 4 * n)
-        imads = bounds["per_perm"][perm] * n * math.ceil(L / 8)
+        imads = (FIELD_MULS[perm] * MIN_IMAD_PER_FIELD_MUL * n
+                 * math.ceil(L / 8))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / bounds["rate"] * 1e3
+    t_ops = imads / (SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
 
 @phase("kernels vs plain")
-def kernels_vs_plain(device, launches, shapes, bounds):
+def kernels_vs_plain(device, launches, shapes, clock_mhz):
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.field import goldilocks as gl
     from plonky2_tpu_torch.hash import poseidon as ps
@@ -370,7 +302,7 @@ def kernels_vs_plain(device, launches, shapes, bounds):
             err = _max_abs_err(run(), plain())
             worst = max(worst, err)
             ms, plain_ms = _time_ms(run, 10), _time_ms(plain, 1)
-            bound_ms, bound_by = _bound(kern.name, shape, bounds)
+            bound_ms, bound_by = _bound(kern.name, shape, clock_mhz)
             log(f"{kern.name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms,"
                 f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
@@ -420,13 +352,9 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, max SM clock {clock:.0f} MHz")
     log(f"[build] kernels built/loaded in {backend.build():.3f} s")
-    for src in sorted(os.listdir(backend.BUILD_DIR)):
-        if src.endswith(".ptxas.txt"):
-            with open(os.path.join(backend.BUILD_DIR, src)) as f:
-                for line in f:
-                    if "registers" in line or "spill" in line:
-                        log(f"ptxas {src[:-10]}: {line.strip()}")
-    bounds = _bounds(backend.BUILD_DIR, clock)
+    for line in backend.PTXAS_REPORT.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(line.strip())
 
     fib100(device)
     fib21_poseidon2(device)
@@ -436,7 +364,7 @@ def main() -> int:
         launches[k] += launches2[k]
         for s, n in shapes2[k].items():
             shapes[k][s] = shapes[k].get(s, 0) + n
-    table = kernels_vs_plain(device, launches, shapes, bounds)
+    table = kernels_vs_plain(device, launches, shapes, clock)
     assert sys.modules["jax"] is None and sys.modules["plonky2_tpu"] is None
 
     log(json.dumps({"kernels": table}))

@@ -1,7 +1,8 @@
 """Kernel build, binding and bookkeeping.
 
 The CUDA sources in `csrc/` are compiled with nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes, the first time a kernel
+library with a plain C interface, named by a hash of the sources and the
+generated constant tables, and loaded with ctypes, the first time a kernel
 is launched (or when `build()` is called). Every C entry returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.
 
@@ -14,9 +15,11 @@ through and replay them against their plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -24,7 +27,6 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-LIB_NAME = "libplonky2_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -70,6 +72,7 @@ def reset_counts() -> None:
 
 
 _LIB = None
+PTXAS_REPORT = ""     # nvcc's -Xptxas -v output of the last build here
 
 
 def nvcc_path() -> str:
@@ -81,21 +84,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _write_tables(path: str, tables) -> None:
+def build_key(paths, generated: dict, flags) -> str:
+    """A hash of the source files, the generated headers ({name: text}) and
+    the compiler command: a library is named by it, so a build from other
+    sources, other constants or another compiler is never loaded."""
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    for name in sorted(generated):
+        h.update(name.encode() + b"\0" + generated[name].encode())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _tables_text(tables) -> str:
     """(name, values) pairs as `__constant__ uint64_t` arrays."""
-    with open(path, "w") as f:
-        f.write("// generated by plonky2_tpu_torch/backend.py\n#pragma once\n")
-        for name, vals in tables:
-            f.write("__constant__ uint64_t %s[%d] = {\n%s};\n" % (
-                name, len(vals),
-                ",\n".join("  0x%016xULL" % v for v in vals)))
+    return "// generated by plonky2_tpu_torch/backend.py\n#pragma once\n" + \
+        "".join("__constant__ uint64_t %s[%d] = {\n%s};\n" % (
+            name, len(vals), ",\n".join("  0x%016xULL" % v for v in vals))
+            for name, vals in tables)
 
 
-def _emit_tables() -> None:
-    """The kernels' constant tables, generated from the port's constants:
-    Poseidon's round constants, MDS and derived fast-partial-round tables;
-    Poseidon2's full-round constants (the oracle's rows RC12[0..4) and
-    RC12[26..30)), internal-round constants RC12[4 + r][0] and diagonal."""
+def _tables() -> dict:
+    """The kernels' constant-table headers, generated from the port's
+    constants: Poseidon's round constants, MDS and derived fast-partial-round
+    tables; Poseidon2's full-round constants (the oracle's rows RC12[0..4)
+    and RC12[26..30)), internal-round constants RC12[4 + r][0] and
+    diagonal."""
     from .hash.poseidon2_constants import (
         MATRIX_DIAG_12, RC12, ROUNDS_F, ROUNDS_P,
     )
@@ -106,61 +122,67 @@ def _emit_tables() -> None:
 
     first_rc, partial_rc, vs, w_hats, init_mat = fast_partial_tables()
     flat = lambda rows: [x for row in rows for x in row]
-    _write_tables(os.path.join(BUILD_DIR, "poseidon_tables.h"), (
-        ("C_RC", ALL_ROUND_CONSTANTS), ("C_MDS_CIRC", MDS_MATRIX_CIRC),
-        ("C_MDS_DIAG", MDS_MATRIX_DIAG), ("C_FIRST_RC", first_rc),
-        ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
-        ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat))))
     half_f = ROUNDS_F // 2
-    _write_tables(os.path.join(BUILD_DIR, "poseidon2_tables.h"), (
-        ("C2_FULL_RC", flat(RC12[:half_f] + RC12[half_f + ROUNDS_P:])),
-        ("C2_PARTIAL_RC", [RC12[half_f + r][0] for r in range(ROUNDS_P)]),
-        ("C2_DIAG", MATRIX_DIAG_12)))
+    return {
+        "poseidon_tables.h": _tables_text((
+            ("C_RC", ALL_ROUND_CONSTANTS), ("C_MDS_CIRC", MDS_MATRIX_CIRC),
+            ("C_MDS_DIAG", MDS_MATRIX_DIAG), ("C_FIRST_RC", first_rc),
+            ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
+            ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat)))),
+        "poseidon2_tables.h": _tables_text((
+            ("C2_FULL_RC", flat(RC12[:half_f] + RC12[half_f + ROUNDS_P:])),
+            ("C2_PARTIAL_RC", [RC12[half_f + r][0]
+                               for r in range(ROUNDS_P)]),
+            ("C2_DIAG", MATRIX_DIAG_12))),
+    }
 
 
 def build() -> float:
-    """Compile `csrc/*.cu` with nvcc into BUILD_DIR (skipped when the
-    library is newer than every source) and load it. Returns the seconds
-    spent."""
-    global _LIB
+    """Compile `csrc/*.cu` with nvcc into one library under BUILD_DIR, named
+    by `build_key` of the sources and table headers (skipped when that
+    library exists), and load it. One nvcc per source, all started together,
+    then one link, all in a private directory; the library is renamed into
+    place. Their ptxas reports (registers, spills) go to PTXAS_REPORT.
+    Returns the seconds spent."""
+    global _LIB, PTXAS_REPORT
     t0 = time.perf_counter()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    sources = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                     if f.endswith(".cu"))
-    deps = sources + [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                      if f.endswith(".cuh")]
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-    stale = (not os.path.exists(lib_path)
-             or os.path.getmtime(lib_path) < max(map(os.path.getmtime, deps)))
-    if stale:
-        _emit_tables()
+    names = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith((".cu",
+                                                                  ".cuh")))
+    sources = [os.path.join(CSRC_DIR, f) for f in names if f.endswith(".cu")]
+    tables = _tables()
+    key = build_key([os.path.join(CSRC_DIR, f) for f in names], tables,
+                    NVCC_FLAGS)
+    lib_path = os.path.join(BUILD_DIR, f"libplonky2_kernels-{key}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = nvcc_path()
-        # one nvcc per source, all started together, then one link; each
-        # compile's register and spill report (-Xptxas -v) is kept beside
-        # its object as <source>.ptxas.txt
-        jobs = []
-        for src in sources:
-            obj = os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-I", BUILD_DIR,
-                   "-I", CSRC_DIR, "-o", obj, src]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        for cmd, obj, proc in jobs:
-            _, err = proc.communicate()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            for name, text in tables.items():
+                with open(os.path.join(tmp, name), "w") as f:
+                    f.write(text)
+            jobs = []
+            for src in sources:
+                obj = os.path.join(tmp, os.path.basename(src) + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-I", tmp,
+                       "-I", CSRC_DIR, "-o", obj, src]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            report = []
+            for cmd, obj, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed:\n%s\n%s" % (
+                        " ".join(cmd), err))
+                report.append(err)
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                   os.path.join(tmp, "lib.so"), *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError("nvcc failed:\n%s\n%s" % (" ".join(cmd),
-                                                             err))
-            with open(obj[:-2] + ".ptxas.txt", "w") as f:
-                f.write(err)
-        tmp = lib_path + ".tmp%d" % os.getpid()
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
-               *(obj for _, obj, _ in jobs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n%s\n%s" % (
-                " ".join(cmd), proc.stderr))
-        os.replace(tmp, lib_path)
+                raise RuntimeError("nvcc link failed:\n%s\n%s" % (
+                    " ".join(cmd), proc.stderr))
+            os.replace(os.path.join(tmp, "lib.so"), lib_path)
+        PTXAS_REPORT = "".join(report)
     lib = ctypes.CDLL(lib_path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ntt_dit.argtypes = [p, p, ll, i, i, p]

@@ -2,7 +2,8 @@
 (`csrc/host_poseidon.c`).
 
 Built at first use with the host C compiler (`$CC`, else `cc`) into
-`plonky2_tpu_torch/_build/`, with its constants header emitted from the
+`plonky2_tpu_torch/_build/`, named by a hash of the source, the compiler
+command and its constants header, which is emitted from the
 port's own `hash/poseidon_constants.py`, `hash/poseidon_fast.py` and
 `hash/poseidon2_constants.py`, and loaded with ctypes. It is host code,
 not a kernel: where no compiler is found each function returns None and
@@ -18,7 +19,7 @@ import tempfile
 
 import numpy as np
 
-from .backend import BUILD_DIR, CSRC_DIR
+from .backend import BUILD_DIR, CSRC_DIR, build_key
 
 PERMUTATIONS = ("poseidon_permute", "poseidon2_permute")
 
@@ -26,7 +27,7 @@ _LIB = None
 _TRIED = False
 
 
-def _emit_constants_header(path: str) -> None:
+def _constants_header() -> str:
     from .hash.poseidon_constants import (
         ALL_ROUND_CONSTANTS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG,
     )
@@ -47,11 +48,10 @@ def _emit_constants_header(path: str) -> None:
               ("P2_PARTIAL_RC", [RC12[half_f + r][0]
                                  for r in range(ROUNDS_P)]),
               ("P2_DIAG", MATRIX_DIAG_12))
-    with open(path, "w") as f:
-        f.write("/* generated by plonky2_tpu_torch/host.py */\n")
-        for name, vals in tables:
-            f.write("static const uint64_t %s[%d] = {\n%s\n};\n" % (
-                name, len(vals), ",\n".join("  %dULL" % v for v in vals)))
+    return "/* generated by plonky2_tpu_torch/host.py */\n" + "".join(
+        "static const uint64_t %s[%d] = {\n%s\n};\n" % (
+            name, len(vals), ",\n".join("  %dULL" % v for v in vals))
+        for name, vals in tables)
 
 
 def load():
@@ -62,21 +62,22 @@ def load():
         return _LIB
     _TRIED = True
     src = os.path.join(CSRC_DIR, "host_poseidon.c")
-    lib_path = os.path.join(BUILD_DIR, "libplonky2_host.so")
+    header = {"poseidon_constants_gen.h": _constants_header()}
+    cmd = [os.environ.get("CC", "cc"), "-O2", "-shared", "-fPIC"]
+    lib_path = os.path.join(
+        BUILD_DIR, f"libplonky2_host-{build_key([src], header, cmd)}.so")
     try:
-        if (not os.path.exists(lib_path)
-                or os.path.getmtime(lib_path) < os.path.getmtime(src)):
+        if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             # a private header directory and an atomic rename: test workers
             # may build at the same time
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-                _emit_constants_header(
-                    os.path.join(tmp_dir, "poseidon_constants_gen.h"))
+                for name, text in header.items():
+                    with open(os.path.join(tmp_dir, name), "w") as f:
+                        f.write(text)
                 tmp = os.path.join(tmp_dir, "lib.so")
-                subprocess.run(
-                    [os.environ.get("CC", "cc"), "-O2", "-shared", "-fPIC",
-                     "-I", tmp_dir, "-o", tmp, src],
-                    check=True, capture_output=True)
+                subprocess.run([*cmd, "-I", tmp_dir, "-o", tmp, src],
+                               check=True, capture_output=True)
                 os.replace(tmp, lib_path)
         lib = ctypes.CDLL(lib_path)
     except (OSError, subprocess.CalledProcessError):

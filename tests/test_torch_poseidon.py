@@ -9,6 +9,8 @@ The JAX sponge runs as the JAX package's own CPU tests run it
 on XLA:CPU it takes tens of minutes, which is why tests/test_pallas_poseidon
 skips on CPU."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -105,3 +107,26 @@ def test_poseidon_gate_trace_python_matches_native(swap):
         pytest.skip("no C compiler for the native trace")
     got = _trace_python(inputs, swap)
     assert [got[c] for c in _TRACE_COLS] == [trace[c] for c in _TRACE_COLS]
+
+
+def test_build_key_follows_sources_tables_and_flags(tmp_path):
+    """A kernel or host library is named by a hash of its sources, its
+    generated constant headers and its compiler command, so a build left
+    from other sources or other constants is never loaded."""
+    from plonky2_tpu_torch import backend, host
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    tables = backend._tables()
+    key = backend.build_key([str(src)], tables, ["-O3"])
+    assert key == backend.build_key([str(src)], backend._tables(), ["-O3"])
+    src.write_text("// v2\n")
+    assert backend.build_key([str(src)], tables, ["-O3"]) != key
+    src.write_text("// v1\n")
+    edited = dict(tables)
+    edited["poseidon2_tables.h"] += "// one more line\n"
+    assert backend.build_key([str(src)], edited, ["-O3"]) != key
+    assert backend.build_key([str(src)], tables, ["-O2"]) != key
+    lib = host.load()
+    if lib is not None:
+        name = os.path.basename(lib._name)
+        assert name.startswith("libplonky2_host-") and len(name) == 35
