@@ -14,12 +14,23 @@ Phases, each of which raises on failure:
   4. dummy-2^14: the base proof of the reference's bench_recursion
      (dummy_circuit(standard_recursion_config(), 14, 4), public input
      0 = 42) under Poseidon: build, prove cold and warm, verify, and reject
-     a flipped public input; K1, K2 and K3 must have been launched;
+     a flipped public input; K1, K2 (both entries: the permutation and the
+     Merkle tree) and K3 must have been launched;
   5. dummy-2^14-poseidon2: the same circuit under Poseidon2; K1, K6 and K7
      must have been launched;
   6. every kernel against its plain PyTorch version on the card, over full
      outputs, at every shape phases 4 and 5 launched it at (tolerance:
-     bit-exact), with its time, the plain version's time and its bound.
+     bit-exact), with its device time, its wrapper's time, the plain
+     version's time, its bound and its device ms per warm prove;
+  7. edge batches: K2 (both entries) and K3 against their plain versions on
+     states and leaves made of 0, 1, 2^32 - 1, 2^32, p - 1 = 2^64 - 2^32
+     and the non-canonical p, p + 1 and 2^64 - 1, mixed with random ones,
+     and on leaves of p - 1 (bit-exact);
+  8. PoW stress: the full output of one 2^19-state K2 wave against the host
+     C permutation, then 50 and more waves from the fib100 and
+     fib21-poseidon2 transcript states and from random sponge states, each
+     witness checked on the host to meet the bound, and for the transcript
+     states and 8 random ones to be the smallest that does.
 The kernel counts are set to 0 just before phases 4 and 5 and read just
 after each. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -135,18 +146,44 @@ def _golden(name: str, data, proof, path: str) -> None:
         f"(proof {len(got['proof_hex']) // 2} bytes)")
 
 
+POW_STATES = []   # (hasher, state, witness_pos, threshold) of the fib proofs
+
+
+def _recording_pow_waves(hasher):
+    """Wraps the prover's PoW wave to record its inputs under `hasher`."""
+    from plonky2_tpu_torch.fri import prover
+
+    wave = prover._pow_wave
+
+    def recorded(permute, state, witness_pos, threshold, batch, device):
+        POW_STATES.append((hasher, list(state), witness_pos, threshold))
+        return wave(permute, state, witness_pos, threshold, batch, device)
+    prover._pow_wave = recorded
+    return wave
+
+
 @phase("fib100")
 def fib100(device):
+    from plonky2_tpu_torch.fri import prover
     from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
-    data, proof = _fib(99, PoseidonGoldilocksConfig, device)
+    wave = _recording_pow_waves(PoseidonGoldilocksConfig.hasher)
+    try:
+        data, proof = _fib(99, PoseidonGoldilocksConfig, device)
+    finally:
+        prover._pow_wave = wave
     _golden("fib100", data, proof,
             os.path.join(GOLDEN_DIR, "fib100_transcript.json"))
 
 
 @phase("fib21-poseidon2")
 def fib21_poseidon2(device):
+    from plonky2_tpu_torch.fri import prover
     from plonky2_tpu_torch.hash.hashers import CONFIGS
-    data, proof = _fib(20, CONFIGS[P2], device)
+    wave = _recording_pow_waves(CONFIGS[P2].hasher)
+    try:
+        data, proof = _fib(20, CONFIGS[P2], device)
+    finally:
+        prover._pow_wave = wave
     _golden("fib21-poseidon2", data, proof,
             os.path.join(GOLDEN_DIR, f"fib21_{P2}_transcript.json"))
 
@@ -154,7 +191,8 @@ def fib21_poseidon2(device):
 def _dummy(name: str, gc, device, kernels: tuple):
     """Build, prove cold and warm, verify and tamper-check the 2^14 dummy
     circuit under `gc`; the counts are set to 0 just before and read just
-    after. Returns {kernel: launches} and {kernel: {shape: launches}}."""
+    after. Returns {kernel: launches}, {kernel: {shape: launches}} and the
+    warm prove's {kernel: {shape: launches}}."""
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.plonk.config import CircuitConfig
     from plonky2_tpu_torch.recursion.dummy import dummy_circuit, dummy_proof
@@ -168,10 +206,15 @@ def _dummy(name: str, gc, device, kernels: tuple):
     t_build = time.perf_counter() - t0
     times = []
     for _ in range(2):
+        before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
         t0 = time.perf_counter()
         proof = dummy_proof(data, pis, {0: 42})
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
+    warm = {k.name: {s: n - before[k.name].get(s, 0)
+                     for s, n in k.shapes.items()
+                     if n > before[k.name].get(s, 0)}
+            for k in backend.KERNELS.values()}
     t0 = time.perf_counter()
     data.verify(proof)
     t_verify = time.perf_counter() - t0
@@ -198,14 +241,17 @@ def _dummy(name: str, gc, device, kernels: tuple):
         f"s, verify {t_verify:.3f} s, peak allocated "
         f"{peak / 2**20:.1f} MiB")
     log(f"{name}: launches {launches}")
-    return launches, shapes
+    log(f"{name}: K2 launches (permute + merkle_tree) "
+        f"{launches['poseidon_permute'] + launches['poseidon_merkle_tree']}")
+    return launches, shapes, warm
 
 
 @phase("dummy-2^14")
 def dummy_2_14(device):
     from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
     return _dummy("dummy-2^14", PoseidonGoldilocksConfig, device,
-                  ("ntt_dit", "poseidon_permute", "poseidon_hash_leaves"))
+                  ("ntt_dit", "poseidon_permute", "poseidon_merkle_tree",
+                   "poseidon_hash_leaves"))
 
 
 @phase("dummy-2^14-poseidon2")
@@ -215,7 +261,9 @@ def dummy_2_14_poseidon2(device):
                   ("ntt_dit", "poseidon2_permute", "poseidon2_hash_leaves"))
 
 
-def _time_ms(fn, reps: int) -> float:
+def _wrapper_ms(fn, reps: int) -> float:
+    """ms per call of `reps` back-to-back calls, CUDA events: the host's
+    time whenever that is longer than the kernels'."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -228,7 +276,35 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+def _device_ms(fn, reps: int) -> float:
+    """ms per call on the device: CUDA events around `reps` calls queued
+    behind a sleep kernel (~25 ms), so they run back to back whatever the
+    host's time per call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _flat(out) -> torch.Tensor:
+    """A kernel's output as one tensor (the tree's layers concatenated)."""
+    if isinstance(out, list):
+        return torch.cat(out) if out else torch.empty(0, dtype=torch.int64)
+    return out
+
+
+def _max_abs_err(a, b) -> int:
+    a, b = _flat(a), _flat(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}")
     if torch.equal(a, b):
         return 0
     ua = a.cpu().numpy().view(np.uint64).reshape(-1)
@@ -251,6 +327,13 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
         imads = FIELD_MULS[name] * MIN_IMAD_PER_FIELD_MUL * shape[0]
+    elif name == "poseidon_merkle_tree":
+        # n leaf digests in, the n - 2^cap nodes above them out, one
+        # compression (permutation) per node
+        n, cap_height = shape
+        nodes = n - (1 << cap_height)
+        nbytes = 32 * (n + nodes)
+        imads = FIELD_MULS["poseidon_permute"] * MIN_IMAD_PER_FIELD_MUL * nodes
     else:
         L, n = shape
         perm = name.replace("hash_leaves", "permute")
@@ -263,74 +346,227 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
             "operations")
 
 
-@phase("kernels vs plain")
-def kernels_vs_plain(device, launches, shapes, clock_mhz):
-    from plonky2_tpu_torch import backend
-    from plonky2_tpu_torch.field import goldilocks as gl
+# shapes held beside those the proofs launched: the K4/K5 batch sizes of the
+# TPU (compress levels, now served by the tree kernel) and every tree of the
+# dummy-2^14 proofs
+EXTRA_SHAPES = {
+    "poseidon_permute": [(256,), (128,), (64,), (32,), (16,)],
+    "poseidon_merkle_tree": [(1 << 17, 4), (1 << 13, 4), (1 << 9, 4),
+                             (1 << 5, 4)],
+}
+
+
+def _cases(name, shape, rand):
+    """(kernel call, plain call, size) at one shape."""
     from plonky2_tpu_torch.hash import poseidon as ps
     from plonky2_tpu_torch.hash import poseidon2 as ps2
     from plonky2_tpu_torch.ops import ntt
 
+    if name == "ntt_dit":
+        batch, lg_n, start = shape
+        x = rand(batch, 1 << lg_n)
+        return (lambda: ntt.dit(x, start), lambda: ntt.dit_plain(x, start),
+                x.numel())
+    if name == "poseidon_merkle_tree":
+        n, cap_height = shape
+        d = rand(n, 4)
+        return (lambda: ps.merkle_layers(d, cap_height),
+                lambda: ps.merkle_layers_plain(d, cap_height), n)
+    mod = ps2 if name.startswith("poseidon2") else ps
+    if name.endswith("_permute"):
+        s = rand(shape[0], 12)
+        return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
+                s.numel())
+    x = rand(*shape)
+    return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(x),
+            x.numel())
+
+
+@phase("kernels vs plain")
+def kernels_vs_plain(device, runs, clock_mhz):
+    """runs: {phase: (launches, shapes, warm shapes)} of the dummy phases."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+
     rng = np.random.default_rng(7)
-    mods = {"poseidon": ps, "poseidon2": ps2}
 
     def rand(*shape):
         return gl.from_u64(rng.integers(0, gl.ORDER, size=shape,
                                         dtype=np.uint64), device)
 
-    def cases(name, shape):
-        """(kernel call, plain call, elements) at one shape."""
-        if name == "ntt_dit":
-            batch, lg_n, start = shape
-            x = rand(batch, 1 << lg_n)
-            return (lambda: ntt.dit(x, start),
-                    lambda: ntt.dit_plain(x, start), x.numel())
-        mod = mods[name.rsplit("_", 2)[0]]
-        if name.endswith("_permute"):
-            s = rand(shape[0], 12)
-            return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
-                    s.numel())
-        x = rand(*shape)
-        return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(x),
-                x.numel())
-
     table = []
     for kern in backend.KERNELS.values():
-        worst, largest = 0, None
-        for shape in shapes[kern.name]:
-            run, plain, size = cases(kern.name, shape)
+        launches = sum(r[0][kern.name] for r in runs.values())
+        shapes = {}
+        for r in runs.values():
+            for shape, n in r[1][kern.name].items():
+                shapes[shape] = shapes.get(shape, 0) + n
+        held = list(shapes) + [s for s in EXTRA_SHAPES.get(kern.name, ())
+                               if s not in shapes]
+        worst, largest, per_shape, dev_ms = 0, None, [], {}
+        for shape in held:
+            run, plain, size = _cases(kern.name, shape, rand)
             err = _max_abs_err(run(), plain())
             worst = max(worst, err)
-            ms, plain_ms = _time_ms(run, 10), _time_ms(plain, 1)
+            before = kern.launches
+            run()
+            per_call = kern.launches - before
+            if per_call < 1:
+                raise AssertionError(f"{kern.name} {shape}: the wrapper "
+                                     f"launched no kernel")
+            small = size < 1 << 16
+            ms = _device_ms(run, 100 if small else 10)
+            wrap_ms = _wrapper_ms(run, 100 if small else 10)
+            plain_ms = _wrapper_ms(plain, 1)
             bound_ms, bound_by = _bound(kern.name, shape, clock_mhz)
-            log(f"{kern.name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms,"
-                f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+            dev_ms[shape] = (ms, per_call)
+            log(f"{kern.name} {shape}: max_abs_err {err}, device {ms:.5f} ms"
+                f" ({per_call} launches a call), wrapper {wrap_ms:.5f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}), launched {shapes.get(shape, 0)}")
+            per_shape.append({"shape": list(shape),
+                              "launches": shapes.get(shape, 0), "ms": ms,
+                              "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms})
             if largest is None or size > largest[0]:
-                largest = (size, shape, ms, plain_ms, bound_ms, bound_by)
+                largest = (size, shape, ms, wrap_ms, plain_ms, bound_ms,
+                           bound_by)
         if worst:
             raise AssertionError(f"{kern.name} disagrees with its plain "
                                  f"version (max abs err {worst})")
-        _, shape, ms, plain_ms, bound_ms, bound_by = largest
+        # device ms per warm prove: each shape's launches in that prove
+        # times its device ms per launch
+        warm_ms = {}
+        for phase_name, (_, _, warm) in runs.items():
+            if warm[kern.name]:
+                warm_ms[phase_name] = sum(
+                    n / dev_ms[shape][1] * dev_ms[shape][0]
+                    for shape, n in warm[kern.name].items())
+        _, shape, ms, wrap_ms, plain_ms, bound_ms, bound_by = largest
         entry = {"name": kern.name, "route": "cuda", "source": kern.source,
-                 "replaces": kern.replaces,
-                 "launches": launches[kern.name], "max_abs_err": worst,
-                 "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                 "replaces": kern.replaces, "launches": launches,
+                 "max_abs_err": worst, "shape": list(shape), "ms": ms,
+                 "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 # no single PyTorch call computes a Goldilocks NTT or a
-                 # Poseidon/Poseidon2 permutation or sponge
-                 "library_ms": None}
+                 # no single PyTorch call computes a Goldilocks NTT, a
+                 # Poseidon/Poseidon2 permutation, sponge or Merkle tree
+                 "library_ms": None, "warm_prove_ms": warm_ms,
+                 "per_shape": per_shape}
         if kern.name == "poseidon_permute":
             # K4 (v1) and K5 (v2) are tilings of K2's permutation on the
             # TPU; this kernel takes any batch and serves all three
             entry["replaces"] = ("plonky2_tpu/ops/pallas_poseidon.py:335 "
                                  "(K2), :77 (K4), :372 (K5)")
-            small = [s for s in shapes[kern.name] if s[0] < 512]
-            entry["held_below_512"] = [list(s) for s in small]
-            entry["launches_below_512"] = sum(shapes[kern.name][s]
-                                              for s in small)
+            entry["held_below_512"] = [list(s) for s in held if s[0] < 512]
         table.append(entry)
     return table
+
+
+P = (1 << 64) - (1 << 32) + 1
+# p - 1 = 2^64 - 2^32 is the largest canonical value; p, p + 1 and
+# 2^64 - 1 are not canonical
+EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, P, P + 1, (1 << 64) - 1]
+
+
+@phase("edge batches")
+def edge_batches(device, table):
+    """K2 (both entries) and K3 on edge values against their plain
+    versions; raises their max_abs_err in `table`."""
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.hash import poseidon as ps
+
+    rng = np.random.default_rng(13)
+
+    def batch(*shape):
+        """Half random, half edge values (non-canonical ones included)."""
+        x = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+        pick = rng.random(shape) < 0.5
+        x[pick] = np.asarray(EDGE, dtype=np.uint64)[
+            rng.integers(0, len(EDGE), size=int(pick.sum()))]
+        return torch.from_numpy(x.view(np.int64)).to(device)
+
+    full = lambda *shape: gl.const(P - 1, device, shape)
+    checks = {
+        "poseidon_permute": [(lambda s=batch(4096, 12): (ps.permute(s),
+                                                         ps.permute_plain(s))),
+                             (lambda s=full(512, 12): (ps.permute(s),
+                                                       ps.permute_plain(s)))],
+        "poseidon_hash_leaves": [
+            (lambda x=batch(135, 4096): (ps.hash_leaves(x),
+                                         ps.hash_leaves_plain(x))),
+            (lambda x=full(135, 4096): (ps.hash_leaves(x),
+                                        ps.hash_leaves_plain(x))),
+            (lambda x=full(20, 1 << 17): (ps.hash_leaves(x),
+                                          ps.hash_leaves_plain(x)))],
+        "poseidon_merkle_tree": [
+            (lambda d=batch(1 << 13, 4): (ps.merkle_layers(d, 4),
+                                          ps.merkle_layers_plain(d, 4))),
+            (lambda d=full(1 << 9, 4): (ps.merkle_layers(d, 4),
+                                        ps.merkle_layers_plain(d, 4)))],
+    }
+    by_name = {e["name"]: e for e in table}
+    for name, cases in checks.items():
+        for case in cases:
+            err = _max_abs_err(*case())
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               err)
+            if err:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on an edge batch ({err})")
+        log(f"{name}: {len(cases)} edge batches bit-exact")
+
+
+@phase("PoW stress")
+def pow_stress(device):
+    """One 2^19 K2 wave against the host C permutation over its full
+    output, then waves from the fib transcript states and from random
+    sponge states, each witness checked on the host."""
+    from plonky2_tpu_torch import host
+    from plonky2_tpu_torch.fri.prover import _pow_wave
+    from plonky2_tpu_torch.hash.hashers import POSEIDON
+
+    if host.load() is None:
+        raise AssertionError("no host C permutation library")
+    rng = np.random.default_rng(17)
+    batch, bits = 1 << 19, 16
+    threshold = 1 << (64 - bits)
+    base = rng.integers(0, P, size=12, dtype=np.uint64)
+    states = np.tile(base, (batch, 1))
+    states[:, 3] = np.arange(batch, dtype=np.uint64)
+    got = POSEIDON.permute(torch.from_numpy(states.view(np.int64)).to(device))
+    want = POSEIDON.permute_many_host(states)
+    if not np.array_equal(got.cpu().numpy().view(np.uint64), want):
+        raise AssertionError("a 2^19 K2 wave differs from the host "
+                             "permutation")
+    log(f"PoW stress: a {batch}-state K2 wave equals the host permutation")
+
+    waves = []
+    for hasher, state, pos, thr in POW_STATES:
+        waves.append((hasher, state, pos, thr))
+        if hasher is not POSEIDON:
+            waves.append((POSEIDON, state, pos, thr))
+    waves += [(POSEIDON, [int(v) for v in rng.integers(0, P, size=12,
+                                                        dtype=np.uint64)],
+               int(rng.integers(0, 8)), threshold) for _ in range(48)]
+    host_perms = 0
+    for i, (hasher, state, pos, thr) in enumerate(waves):
+        w = _pow_wave(hasher.permute, state, pos, thr, batch, device)
+        # the host checks the witness; for the transcript states and the
+        # first 8 random ones, every smaller candidate too
+        lo = 0 if i < len(waves) - 40 else w
+        cand = np.tile(np.asarray(state, dtype=np.uint64), (w + 1 - lo, 1))
+        cand[:, pos] = np.arange(lo, w + 1, dtype=np.uint64)
+        resp = hasher.permute_many_host(cand)[:, 7]
+        host_perms += w + 1 - lo
+        if not (resp[-1] < np.uint64(thr) and
+                bool(np.all(resp[:-1] >= np.uint64(thr)))):
+            raise AssertionError(f"{hasher.name} wave from {state} (witness "
+                                 f"position {pos}) returned {w}, which is "
+                                 f"not the smallest witness on the host")
+    log(f"PoW stress: {len(waves)} waves ({len(POW_STATES)} transcript "
+        f"states), every witness meets the bound on the host, and the "
+        f"first {len(waves) - 40} are the host's smallest ({host_perms} "
+        f"host permutations)")
 
 
 def main() -> int:
@@ -340,6 +576,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from plonky2_tpu_torch import backend
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -358,14 +595,14 @@ def main() -> int:
 
     fib100(device)
     fib21_poseidon2(device)
-    launches, shapes = dummy_2_14(device)
-    launches2, shapes2 = dummy_2_14_poseidon2(device)
-    for k in launches:
-        launches[k] += launches2[k]
-        for s, n in shapes2[k].items():
-            shapes[k][s] = shapes[k].get(s, 0) + n
-    table = kernels_vs_plain(device, launches, shapes, clock)
+    runs = {"dummy-2^14": dummy_2_14(device),
+            "dummy-2^14-poseidon2": dummy_2_14_poseidon2(device)}
+    table = kernels_vs_plain(device, runs, clock)
+    edge_batches(device, table)
+    pow_stress(device)
     assert sys.modules["jax"] is None and sys.modules["plonky2_tpu"] is None
+    log(f"chip_smoke.py: all phases ok in {time.perf_counter() - t_start:.1f}"
+        f" s")
 
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -53,6 +53,9 @@ KERNELS = {
     "poseidon_permute": Kernel(
         "poseidon_permute", "plonky2_tpu_torch/csrc/poseidon.cu",
         "plonky2_tpu/ops/pallas_poseidon.py:335"),
+    "poseidon_merkle_tree": Kernel(
+        "poseidon_merkle_tree", "plonky2_tpu_torch/csrc/poseidon.cu",
+        "plonky2_tpu/ops/pallas_poseidon.py:335"),
     "poseidon_hash_leaves": Kernel(
         "poseidon_hash_leaves", "plonky2_tpu_torch/csrc/poseidon.cu",
         "plonky2_tpu/ops/pallas_poseidon.py:410"),
@@ -99,34 +102,43 @@ def build_key(paths, generated: dict, flags) -> str:
 
 
 def _tables_text(tables) -> str:
-    """(name, values) pairs as `__constant__ uint64_t` arrays."""
+    """(name, values) pairs as `__constant__ uint64_t` arrays, or
+    (name, values, "uint32_t") as 32-bit ones."""
+    def array(name, vals, ctype="uint64_t"):
+        digits = 16 if ctype == "uint64_t" else 8
+        suffix = "ULL" if ctype == "uint64_t" else "U"
+        return "__constant__ %s %s[%d] = {\n%s};\n" % (
+            ctype, name, len(vals), ",\n".join(
+                "  0x%0*x%s" % (digits, v, suffix) for v in vals))
     return "// generated by plonky2_tpu_torch/backend.py\n#pragma once\n" + \
-        "".join("__constant__ uint64_t %s[%d] = {\n%s};\n" % (
-            name, len(vals), ",\n".join("  0x%016xULL" % v for v in vals))
-            for name, vals in tables)
+        "".join(array(*t) for t in tables)
 
 
 def _tables() -> dict:
     """The kernels' constant-table headers, generated from the port's
-    constants: Poseidon's round constants, MDS and derived fast-partial-round
-    tables; Poseidon2's full-round constants (the oracle's rows RC12[0..4)
-    and RC12[26..30)), internal-round constants RC12[4 + r][0] and
-    diagonal."""
+    constants: Poseidon's round constants (with a last row of zeros), its
+    12 x 12 MDS matrix (circulant plus diagonal, as 32-bit entries), the
+    constants added after each full round of the fast-partial-round form
+    (rows 1-3, the first partial constants, rows 27-29, zeros) and that
+    form's partial-round tables;
+    Poseidon2's full-round constants (the oracle's rows RC12[0..4) and
+    RC12[26..30)), internal-round constants RC12[4 + r][0] and diagonal."""
     from .hash.poseidon2_constants import (
         MATRIX_DIAG_12, RC12, ROUNDS_F, ROUNDS_P,
     )
-    from .hash.poseidon_constants import (
-        ALL_ROUND_CONSTANTS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG,
-    )
-    from .hash.poseidon_fast import fast_partial_tables
+    from .hash.poseidon_constants import ALL_ROUND_CONSTANTS, SPONGE_WIDTH
+    from .hash.poseidon_fast import _mds_matrix, fast_partial_tables
 
     first_rc, partial_rc, vs, w_hats, init_mat = fast_partial_tables()
     flat = lambda rows: [x for row in rows for x in row]
-    half_f = ROUNDS_F // 2
+    w, half_f = SPONGE_WIDTH, ROUNDS_F // 2
+    rc = list(ALL_ROUND_CONSTANTS) + [0] * w
+    row = lambda r: rc[w * r:w * (r + 1)]
     return {
         "poseidon_tables.h": _tables_text((
-            ("C_RC", ALL_ROUND_CONSTANTS), ("C_MDS_CIRC", MDS_MATRIX_CIRC),
-            ("C_MDS_DIAG", MDS_MATRIX_DIAG), ("C_FIRST_RC", first_rc),
+            ("C_RC", rc), ("C_MDS", flat(_mds_matrix()), "uint32_t"),
+            ("C_FULL_RC", flat([row(1), row(2), row(3), first_rc,
+                                row(27), row(28), row(29), row(30)])),
             ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
             ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat)))),
         "poseidon2_tables.h": _tables_text((
@@ -192,6 +204,8 @@ def build() -> float:
         getattr(lib, name).argtypes = [p, p, ll, p]
     for name in ("poseidon_hash_leaves", "poseidon2_hash_leaves"):
         getattr(lib, name).argtypes = [p, p, i, ll, p]
+    lib.poseidon_merkle_tree.argtypes = [p, p, ll, i, p,
+                                         ctypes.POINTER(ctypes.c_int)]
     for name in KERNELS:
         getattr(lib, name).restype = i
     _LIB = lib

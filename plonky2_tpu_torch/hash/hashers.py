@@ -6,8 +6,8 @@
 The hasher builds the Merkle trees and drives the challenger; the inner
 hasher hashes the public inputs. Each hasher carries its host oracles
 (python ints; host digests are tuples of 4 ints) and its device functions
-(`permute`, `hash_or_noop_columns`, `hash_or_noop`, `compress` on int64
-tensors, each a kernel for a CUDA tensor), so callers dispatch on the
+(`permute`, `hash_or_noop_columns`, `hash_or_noop`, `merkle_layers` on
+int64 tensors, each a kernel for a CUDA tensor), so callers dispatch on the
 hasher, never on a module. `permute_oracle` permutes one state of python
 ints and `permute_many_host` a uint64 [n, 12] batch on the host.
 """
@@ -69,7 +69,7 @@ class PoseidonHasher(Hasher):
     permute = staticmethod(ps.permute)
     hash_or_noop_columns = staticmethod(ps.hash_or_noop_columns)
     hash_or_noop = staticmethod(ps.hash_or_noop)
-    compress = staticmethod(ps.compress)
+    merkle_layers = staticmethod(ps.merkle_layers)
 
 
 class Poseidon2Hasher(Hasher):
@@ -80,7 +80,7 @@ class Poseidon2Hasher(Hasher):
     permute = staticmethod(ps2.permute)
     hash_or_noop_columns = staticmethod(ps2.hash_or_noop_columns)
     hash_or_noop = staticmethod(ps2.hash_or_noop)
-    compress = staticmethod(ps2.compress)
+    merkle_layers = staticmethod(ps2.merkle_layers)
 
 
 POSEIDON = PoseidonHasher()

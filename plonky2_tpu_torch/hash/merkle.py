@@ -1,8 +1,10 @@
 """Merkle tree with cap (reference: plonky2/src/hash/merkle_tree.rs).
 
-The leaf layer is one batched hash_or_noop of the hasher (K3 or K7), each
-reduction one batched compress of sibling pairs (K2 or K6); layer l, node
-i covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer with 2^cap_height nodes.
+The leaf layer is one batched hash_or_noop of the hasher (K3 or K7); the
+layers above it come from the hasher's `merkle_layers` (K2's tree kernel,
+or one K6 compress per level) as views into one buffer; layer l, node i
+covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer with
+2^cap_height nodes.
 Leaves and digest layers stay on the tensor's device; proofs and rows are
 gathered there and copied to the host once per call.
 """
@@ -19,11 +21,7 @@ from ..utils.bits import log2_strict
 def build_layers(leaf_digests: torch.Tensor, cap_height: int,
                  hasher) -> list:
     """[N, 4] leaf digests -> digest layers, leaf layer first, cap last."""
-    layers = [leaf_digests]
-    for _ in range(log2_strict(leaf_digests.shape[0]) - cap_height):
-        pairs = layers[-1].reshape(-1, 8)
-        layers.append(hasher.compress(pairs[:, :4], pairs[:, 4:]))
-    return layers
+    return [leaf_digests] + hasher.merkle_layers(leaf_digests, cap_height)
 
 
 class MerkleTree:

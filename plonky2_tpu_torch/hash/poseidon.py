@@ -7,11 +7,16 @@ Device side, on int64 tensors:
 - `hash_leaves(x [L, N])` is kernel K3, the overwrite-mode sponge
   hash_no_pad over each column, for a CUDA tensor and `hash_leaves_plain`
   for a CPU one;
-- `hash_or_noop_columns`, `hash_or_noop` and `compress` are built on those
-  two (`sponge.py`).
+- `merkle_layers(leaf_digests [N, 4], cap_height)` is K2's tree kernel,
+  every layer above the leaves in at most two launches, for a CUDA tensor
+  and `merkle_layers_plain` for a CPU one;
+- `hash_or_noop_columns`, `hash_or_noop` and `compress` are built on the
+  first two (`sponge.py`).
 
 The plain versions follow the fast-partial-round schedule of
-`poseidon_fast.py` with the state as [12, B] lanes.
+`poseidon_fast.py` with the state as [12, B] lanes; the plain tree is the
+per-level loop of compress over the plain permutation, into the kernel's
+buffer at its offsets.
 
 Host side, on python ints: `permute_host` and `permute_many_host` run the C
 permutation of `host.py`, or poseidon_fast's python-int algebra without a C
@@ -121,6 +126,15 @@ def hash_leaves_plain(x: torch.Tensor) -> torch.Tensor:
     return sponge.hash_leaves_plain(x, permute_lanes_plain)
 
 
+def merkle_layers_plain(leaf_digests: torch.Tensor,
+                        cap_height: int) -> list:
+    """Plain PyTorch version of the tree kernel: the layers above [N, 4]
+    leaf digests down to the cap, as views into one tree buffer."""
+    return sponge.merkle_layers_by_level(
+        leaf_digests, cap_height,
+        lambda left, right: sponge.compress(left, right, permute_plain))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and the functions built on them
 # ---------------------------------------------------------------------------
@@ -134,6 +148,13 @@ def hash_leaves(x: torch.Tensor) -> torch.Tensor:
     """K3 wrapper: hash_no_pad over each column of x [L, N] -> [N, 4]."""
     return sponge.launch_hash_leaves("poseidon_hash_leaves", x,
                                      hash_leaves_plain)
+
+
+def merkle_layers(leaf_digests: torch.Tensor, cap_height: int) -> list:
+    """K2 tree wrapper: the layers above [N, 4] leaf digests down to the cap
+    (layer 1 first, the cap last), as views into one tree buffer."""
+    return sponge.launch_merkle_tree("poseidon_merkle_tree", leaf_digests,
+                                     cap_height, merkle_layers_plain)
 
 
 def hash_or_noop_columns(x: torch.Tensor) -> torch.Tensor:

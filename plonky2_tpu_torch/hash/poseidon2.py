@@ -189,3 +189,9 @@ def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Two-to-one over digest pairs [m, 4] x [m, 4] -> [m, 4]; equals the
     host two_to_one = hash_no_pad(left + right)."""
     return sponge.compress(left, right, permute)
+
+
+def merkle_layers(leaf_digests: torch.Tensor, cap_height: int) -> list:
+    """The layers above [N, 4] leaf digests down to the cap, one K6
+    compress per level, as views into one tree buffer."""
+    return sponge.merkle_layers_by_level(leaf_digests, cap_height, compress)

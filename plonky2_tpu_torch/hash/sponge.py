@@ -5,14 +5,22 @@ Each permutation module (`poseidon.py`, `poseidon2.py`) owns a permutation
 kernel and a fused leaf-sponge kernel with their plain versions; the
 functions here launch a kernel through its wrapper contract (a CPU tensor
 takes the plain version, a CUDA tensor the kernel, anything else raises)
-and build hash_or_noop and compress on top of the two kernels.
+and build hash_or_noop, compress and the Merkle layers on top of them.
+
+A tree's layers above its n leaves live in one [n - 2^cap_height, 4] buffer,
+layer l (1 for the leaves' parents) at row n - n / 2^(l-1) (`tree_offsets`):
+the Poseidon tree kernel writes it in at most two launches, and
+`merkle_layers_by_level` fills the same buffer one compress per level.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import backend
+from ..utils.bits import log2_strict
 
 W = 12
 SPONGE_RATE = 8
@@ -85,3 +93,57 @@ def compress(left: torch.Tensor, right: torch.Tensor,
     elements of the permuted state [left, right, 0, 0, 0, 0]."""
     zeros = torch.zeros_like(left)
     return permute(torch.cat([left, right, zeros], dim=1))[:, :4]
+
+
+def tree_offsets(n: int, cap_height: int) -> list[int]:
+    """Row of each layer above the n leaves in the tree buffer, layer 1
+    first, then the buffer's row count."""
+    depth = log2_strict(n) - cap_height
+    return [n - (n >> (level - 1)) for level in range(1, depth + 2)]
+
+
+def _tree_buffer(leaf_digests: torch.Tensor, cap_height: int):
+    """An empty tree buffer for the leaf digests, and each layer's rows."""
+    offs = tree_offsets(leaf_digests.shape[0], cap_height)
+    buf = torch.empty((offs[-1], NUM_HASH_OUT_ELTS), dtype=torch.int64,
+                      device=leaf_digests.device)
+    return buf, list(zip(offs, offs[1:]))
+
+
+def merkle_layers_by_level(leaf_digests: torch.Tensor, cap_height: int,
+                           compress) -> list:
+    """The layers above [n, 4] leaf digests down to the cap, one batched
+    compress per level, as views into one tree buffer."""
+    buf, spans = _tree_buffer(leaf_digests, cap_height)
+    layer = leaf_digests
+    for lo, hi in spans:
+        pairs = layer.reshape(-1, 2 * NUM_HASH_OUT_ELTS)
+        buf[lo:hi] = compress(pairs[:, :NUM_HASH_OUT_ELTS],
+                              pairs[:, NUM_HASH_OUT_ELTS:])
+        layer = buf[lo:hi]
+    return [buf[lo:hi] for lo, hi in spans]
+
+
+def launch_merkle_tree(name: str, leaf_digests: torch.Tensor,
+                       cap_height: int, plain) -> list:
+    """Tree kernel `name`: the layers above [n, 4] leaf digests down to the
+    cap (n a power of two) as views into one tree buffer, layer 1 first."""
+    if leaf_digests.ndim != 2 or leaf_digests.shape[1] != NUM_HASH_OUT_ELTS:
+        raise ValueError(f"{name}: leaf digests must be [n, 4], got "
+                         f"{tuple(leaf_digests.shape)}")
+    n = leaf_digests.shape[0]
+    if not 0 <= cap_height <= log2_strict(n):
+        raise ValueError(f"{name}: cap height {cap_height} for {n} leaves")
+    if backend.plain_path(leaf_digests, name):
+        return plain(leaf_digests, cap_height)
+    leaf_digests = leaf_digests.contiguous()
+    backend.require_cuda_int64(leaf_digests, name)
+    buf, spans = _tree_buffer(leaf_digests, cap_height)
+    launches = ctypes.c_int(0)
+    rc = getattr(backend.lib(), name)(
+        leaf_digests.data_ptr(), buf.data_ptr(), n, cap_height,
+        backend.stream(leaf_digests), ctypes.byref(launches))
+    backend.check(rc, name)
+    for _ in range(launches.value):
+        backend.KERNELS[name].launched((n, cap_height))
+    return [buf[lo:hi] for lo, hi in spans]

@@ -2,7 +2,8 @@
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
 verify fib(21) on the CPU under both ported hasher configs, and check that
 no module of JAX or of the JAX package was loaded. An AST scan checks that
-no module of the port, and not chip_smoke.py, imports either. This is what
+no module of the port, chip_smoke.py or the port's kernel probe
+(scripts/torch_poseidon_probe.py) imports either. This is what
 lets chip_smoke.py run on a machine with no JAX."""
 
 import ast
@@ -74,7 +75,8 @@ def _imported_roots(path):
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_poseidon_probe.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
