@@ -16,21 +16,24 @@ Phases, each of which raises on failure:
      0 = 42) under Poseidon: build, prove cold and warm, verify, and reject
      a flipped public input; K1, K2 (both entries: the permutation and the
      Merkle tree) and K3 must have been launched;
-  5. dummy-2^14-poseidon2: the same circuit under Poseidon2; K1, K6 and K7
-     must have been launched;
+  5. dummy-2^14-poseidon2: the same circuit under Poseidon2; K1, K6 (both
+     entries: the permutation and the Merkle tree) and K7 must have been
+     launched;
   6. every kernel against its plain PyTorch version on the card, over full
      outputs, at every shape phases 4 and 5 launched it at (tolerance:
      bit-exact), with its device time, its wrapper's time, the plain
      version's time, its bound and its device ms per warm prove;
-  7. edge batches: K2 (both entries) and K3 against their plain versions on
-     states and leaves made of 0, 1, 2^32 - 1, 2^32, p - 1 = 2^64 - 2^32
-     and the non-canonical p, p + 1 and 2^64 - 1, mixed with random ones,
-     and on leaves of p - 1 (bit-exact);
-  8. PoW stress: the full output of one 2^19-state K2 wave against the host
-     C permutation, then 50 and more waves from the fib100 and
-     fib21-poseidon2 transcript states and from random sponge states, each
-     witness checked on the host to meet the bound, and for the transcript
-     states and 8 random ones to be the smallest that does.
+  7. edge batches: K2 and K6 (both entries each), K3 and K7 against their
+     plain versions on states and leaves made of 0, 1, 2^32 - 1, 2^32,
+     p - 1 = 2^64 - 2^32 and the non-canonical p, p + 1 and 2^64 - 1, mixed
+     with random ones, on states of all 2^64 - 1, and on leaves of p - 1
+     (bit-exact);
+  8. PoW stress: the full output of one 2^19-state wave of K2 and of K6
+     against the host C permutation, then waves from the fib100 and
+     fib21-poseidon2 transcript states through both hashers and from random
+     sponge states (48 through K2, 24 through K6), each witness checked on
+     the host to meet the bound, and for the transcript states and 8 random
+     ones of each hasher to be the smallest that does.
 The kernel counts are set to 0 just before phases 4 and 5 and read just
 after each. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -40,6 +43,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -241,8 +245,9 @@ def _dummy(name: str, gc, device, kernels: tuple):
         f"s, verify {t_verify:.3f} s, peak allocated "
         f"{peak / 2**20:.1f} MiB")
     log(f"{name}: launches {launches}")
-    log(f"{name}: K2 launches (permute + merkle_tree) "
-        f"{launches['poseidon_permute'] + launches['poseidon_merkle_tree']}")
+    for k, prefix in (("K2", "poseidon"), ("K6", "poseidon2")):
+        log(f"{name}: {k} launches (permute + merkle_tree) "
+            f"{launches[prefix + '_permute'] + launches[prefix + '_merkle_tree']}")
     return launches, shapes, warm
 
 
@@ -258,7 +263,8 @@ def dummy_2_14(device):
 def dummy_2_14_poseidon2(device):
     from plonky2_tpu_torch.hash.hashers import CONFIGS
     return _dummy("dummy-2^14-poseidon2", CONFIGS[P2], device,
-                  ("ntt_dit", "poseidon2_permute", "poseidon2_hash_leaves"))
+                  ("ntt_dit", "poseidon2_permute", "poseidon2_merkle_tree",
+                   "poseidon2_hash_leaves"))
 
 
 def _wrapper_ms(fn, reps: int) -> float:
@@ -327,13 +333,14 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
         imads = FIELD_MULS[name] * MIN_IMAD_PER_FIELD_MUL * shape[0]
-    elif name == "poseidon_merkle_tree":
+    elif name.endswith("_merkle_tree"):
         # n leaf digests in, the n - 2^cap nodes above them out, one
         # compression (permutation) per node
         n, cap_height = shape
         nodes = n - (1 << cap_height)
         nbytes = 32 * (n + nodes)
-        imads = FIELD_MULS["poseidon_permute"] * MIN_IMAD_PER_FIELD_MUL * nodes
+        perm = name.replace("merkle_tree", "permute")
+        imads = FIELD_MULS[perm] * MIN_IMAD_PER_FIELD_MUL * nodes
     else:
         L, n = shape
         perm = name.replace("hash_leaves", "permute")
@@ -347,13 +354,12 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
 
 
 # shapes held beside those the proofs launched: the K4/K5 batch sizes of the
-# TPU (compress levels, now served by the tree kernel) and every tree of the
-# dummy-2^14 proofs
-EXTRA_SHAPES = {
-    "poseidon_permute": [(256,), (128,), (64,), (32,), (16,)],
-    "poseidon_merkle_tree": [(1 << 17, 4), (1 << 13, 4), (1 << 9, 4),
-                             (1 << 5, 4)],
-}
+# TPU and the small batches of K6 (compress levels, now served by the tree
+# kernels) and every tree of the dummy-2^14 proofs
+TREES = [(1 << 17, 4), (1 << 13, 4), (1 << 9, 4), (1 << 5, 4)]
+SMALL = [(256,), (128,), (64,), (32,), (16,)]
+EXTRA_SHAPES = {"poseidon_permute": SMALL, "poseidon_merkle_tree": TREES,
+                "poseidon2_permute": SMALL, "poseidon2_merkle_tree": TREES}
 
 
 def _cases(name, shape, rand):
@@ -367,12 +373,12 @@ def _cases(name, shape, rand):
         x = rand(batch, 1 << lg_n)
         return (lambda: ntt.dit(x, start), lambda: ntt.dit_plain(x, start),
                 x.numel())
-    if name == "poseidon_merkle_tree":
+    mod = ps2 if name.startswith("poseidon2") else ps
+    if name.endswith("_merkle_tree"):
         n, cap_height = shape
         d = rand(n, 4)
-        return (lambda: ps.merkle_layers(d, cap_height),
-                lambda: ps.merkle_layers_plain(d, cap_height), n)
-    mod = ps2 if name.startswith("poseidon2") else ps
+        return (lambda: mod.merkle_layers(d, cap_height),
+                lambda: mod.merkle_layers_plain(d, cap_height), n)
     if name.endswith("_permute"):
         s = rand(shape[0], 12)
         return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
@@ -470,10 +476,11 @@ EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, P, P + 1, (1 << 64) - 1]
 
 @phase("edge batches")
 def edge_batches(device, table):
-    """K2 (both entries) and K3 on edge values against their plain
-    versions; raises their max_abs_err in `table`."""
+    """K2 and K6 (both entries each), K3 and K7 on edge values against their
+    plain versions; raises their max_abs_err in `table`."""
     from plonky2_tpu_torch.field import goldilocks as gl
     from plonky2_tpu_torch.hash import poseidon as ps
+    from plonky2_tpu_torch.hash import poseidon2 as ps2
 
     rng = np.random.default_rng(13)
 
@@ -486,74 +493,76 @@ def edge_batches(device, table):
         return torch.from_numpy(x.view(np.int64)).to(device)
 
     full = lambda *shape: gl.const(P - 1, device, shape)
-    checks = {
-        "poseidon_permute": [(lambda s=batch(4096, 12): (ps.permute(s),
-                                                         ps.permute_plain(s))),
-                             (lambda s=full(512, 12): (ps.permute(s),
-                                                       ps.permute_plain(s)))],
-        "poseidon_hash_leaves": [
-            (lambda x=batch(135, 4096): (ps.hash_leaves(x),
-                                         ps.hash_leaves_plain(x))),
-            (lambda x=full(135, 4096): (ps.hash_leaves(x),
-                                        ps.hash_leaves_plain(x))),
-            (lambda x=full(20, 1 << 17): (ps.hash_leaves(x),
-                                          ps.hash_leaves_plain(x)))],
-        "poseidon_merkle_tree": [
-            (lambda d=batch(1 << 13, 4): (ps.merkle_layers(d, 4),
-                                          ps.merkle_layers_plain(d, 4))),
-            (lambda d=full(1 << 9, 4): (ps.merkle_layers(d, 4),
-                                        ps.merkle_layers_plain(d, 4)))],
-    }
+    # every word 2^64 - 1, as an int64 bit pattern (gl.const would reduce it)
+    ones = lambda *shape: torch.full(shape, -1, dtype=torch.int64,
+                                     device=device)
+    # {kernel: (its wrapper, its plain version, inputs)}
+    checks = {}
+    for prefix, mod in (("poseidon", ps), ("poseidon2", ps2)):
+        checks[f"{prefix}_permute"] = (
+            mod.permute, mod.permute_plain,
+            [batch(4096, 12), full(512, 12), ones(512, 12)])
+        checks[f"{prefix}_hash_leaves"] = (
+            mod.hash_leaves, mod.hash_leaves_plain,
+            [batch(135, 4096), full(135, 4096), full(20, 1 << 17),
+             batch(32, 1 << 9)])
+        checks[f"{prefix}_merkle_tree"] = (
+            functools.partial(mod.merkle_layers, cap_height=4),
+            functools.partial(mod.merkle_layers_plain, cap_height=4),
+            [batch(1 << 13, 4), full(1 << 9, 4), ones(1 << 9, 4)])
     by_name = {e["name"]: e for e in table}
-    for name, cases in checks.items():
-        for case in cases:
-            err = _max_abs_err(*case())
+    for name, (run, plain, cases) in checks.items():
+        for x in cases:
+            err = _max_abs_err(run(x), plain(x))
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                                err)
             if err:
                 raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version on an edge batch ({err})")
+                                     f"version on an edge batch of shape "
+                                     f"{tuple(x.shape)} ({err})")
         log(f"{name}: {len(cases)} edge batches bit-exact")
 
 
 @phase("PoW stress")
 def pow_stress(device):
-    """One 2^19 K2 wave against the host C permutation over its full
-    output, then waves from the fib transcript states and from random
+    """One 2^19 wave of K2 and of K6 against the host C permutation over its
+    full output, then waves from the fib transcript states and from random
     sponge states, each witness checked on the host."""
     from plonky2_tpu_torch import host
     from plonky2_tpu_torch.fri.prover import _pow_wave
-    from plonky2_tpu_torch.hash.hashers import POSEIDON
+    from plonky2_tpu_torch.hash.hashers import POSEIDON, POSEIDON2
 
     if host.load() is None:
         raise AssertionError("no host C permutation library")
     rng = np.random.default_rng(17)
     batch, bits = 1 << 19, 16
     threshold = 1 << (64 - bits)
-    base = rng.integers(0, P, size=12, dtype=np.uint64)
-    states = np.tile(base, (batch, 1))
-    states[:, 3] = np.arange(batch, dtype=np.uint64)
-    got = POSEIDON.permute(torch.from_numpy(states.view(np.int64)).to(device))
-    want = POSEIDON.permute_many_host(states)
-    if not np.array_equal(got.cpu().numpy().view(np.uint64), want):
-        raise AssertionError("a 2^19 K2 wave differs from the host "
-                             "permutation")
-    log(f"PoW stress: a {batch}-state K2 wave equals the host permutation")
+    for hasher in (POSEIDON, POSEIDON2):
+        base = rng.integers(0, P, size=12, dtype=np.uint64)
+        states = np.tile(base, (batch, 1))
+        states[:, 3] = np.arange(batch, dtype=np.uint64)
+        got = hasher.permute(torch.from_numpy(states.view(np.int64))
+                             .to(device))
+        want = hasher.permute_many_host(states)
+        if not np.array_equal(got.cpu().numpy().view(np.uint64), want):
+            raise AssertionError(f"a 2^19 {hasher.name} wave differs from "
+                                 f"the host permutation")
+        log(f"PoW stress: a {batch}-state {hasher.name} wave equals the host "
+            f"permutation")
 
-    waves = []
-    for hasher, state, pos, thr in POW_STATES:
-        waves.append((hasher, state, pos, thr))
-        if hasher is not POSEIDON:
-            waves.append((POSEIDON, state, pos, thr))
-    waves += [(POSEIDON, [int(v) for v in rng.integers(0, P, size=12,
-                                                        dtype=np.uint64)],
-               int(rng.integers(0, 8)), threshold) for _ in range(48)]
+    # (hasher, state, witness position, threshold, whether every smaller
+    # candidate is checked on the host too)
+    waves = [(h, state, pos, thr, True) for _, state, pos, thr in POW_STATES
+             for h in (POSEIDON, POSEIDON2)]
+    for hasher, count in ((POSEIDON, 48), (POSEIDON2, 24)):
+        waves += [(hasher, [int(v) for v in rng.integers(0, P, size=12,
+                                                         dtype=np.uint64)],
+                   int(rng.integers(0, 8)), threshold, i < 8)
+                  for i in range(count)]
     host_perms = 0
-    for i, (hasher, state, pos, thr) in enumerate(waves):
+    for hasher, state, pos, thr, smallest in waves:
         w = _pow_wave(hasher.permute, state, pos, thr, batch, device)
-        # the host checks the witness; for the transcript states and the
-        # first 8 random ones, every smaller candidate too
-        lo = 0 if i < len(waves) - 40 else w
+        lo = 0 if smallest else w
         cand = np.tile(np.asarray(state, dtype=np.uint64), (w + 1 - lo, 1))
         cand[:, pos] = np.arange(lo, w + 1, dtype=np.uint64)
         resp = hasher.permute_many_host(cand)[:, 7]
@@ -564,8 +573,9 @@ def pow_stress(device):
                                  f"position {pos}) returned {w}, which is "
                                  f"not the smallest witness on the host")
     log(f"PoW stress: {len(waves)} waves ({len(POW_STATES)} transcript "
-        f"states), every witness meets the bound on the host, and the "
-        f"first {len(waves) - 40} are the host's smallest ({host_perms} "
+        f"states through both hashers, 48 random through poseidon and 24 "
+        f"through poseidon2), every witness meets the bound on the host, and"
+        f" {sum(w[4] for w in waves)} are the host's smallest ({host_perms} "
         f"host permutations)")
 
 

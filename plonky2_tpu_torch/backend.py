@@ -62,6 +62,9 @@ KERNELS = {
     "poseidon2_permute": Kernel(
         "poseidon2_permute", "plonky2_tpu_torch/csrc/poseidon2.cu",
         "plonky2_tpu/ops/pallas_poseidon2.py:124"),
+    "poseidon2_merkle_tree": Kernel(
+        "poseidon2_merkle_tree", "plonky2_tpu_torch/csrc/poseidon2.cu",
+        "plonky2_tpu/ops/pallas_poseidon2.py:124"),
     "poseidon2_hash_leaves": Kernel(
         "poseidon2_hash_leaves", "plonky2_tpu_torch/csrc/poseidon2.cu",
         "plonky2_tpu/ops/pallas_poseidon2.py:161"),
@@ -121,8 +124,13 @@ def _tables() -> dict:
     constants added after each full round of the fast-partial-round form
     (rows 1-3, the first partial constants, rows 27-29, zeros) and that
     form's partial-round tables;
-    Poseidon2's full-round constants (the oracle's rows RC12[0..4) and
-    RC12[26..30)), internal-round constants RC12[4 + r][0] and diagonal."""
+    Poseidon2's constants added after each of its 9 external layers (the
+    oracle's rows RC12[0..4), zeros before the internal rounds, RC12[27..30),
+    zeros after the last), its internal-round constants RC12[4 + r][0], the
+    constants RC12[26] added after the internal rounds, the internal
+    diagonal, and the external matrix (2 M4 on the diagonal blocks, M4 off
+    them) as 32-bit entries."""
+    from .hash.poseidon2 import external_matrix
     from .hash.poseidon2_constants import (
         MATRIX_DIAG_12, RC12, ROUNDS_F, ROUNDS_P,
     )
@@ -134,6 +142,8 @@ def _tables() -> dict:
     w, half_f = SPONGE_WIDTH, ROUNDS_F // 2
     rc = list(ALL_ROUND_CONSTANTS) + [0] * w
     row = lambda r: rc[w * r:w * (r + 1)]
+    zeros = [0] * w
+    mid = half_f + ROUNDS_P
     return {
         "poseidon_tables.h": _tables_text((
             ("C_RC", rc), ("C_MDS", flat(_mds_matrix()), "uint32_t"),
@@ -142,10 +152,13 @@ def _tables() -> dict:
             ("C_PARTIAL_RC", partial_rc), ("C_VS", flat(vs)),
             ("C_W_HATS", flat(w_hats)), ("C_INIT_MAT", flat(init_mat)))),
         "poseidon2_tables.h": _tables_text((
-            ("C2_FULL_RC", flat(RC12[:half_f] + RC12[half_f + ROUNDS_P:])),
+            ("C2_EXT_RC", flat(RC12[:half_f] + [zeros] + RC12[mid + 1:]
+                               + [zeros])),
             ("C2_PARTIAL_RC", [RC12[half_f + r][0]
                                for r in range(ROUNDS_P)]),
-            ("C2_DIAG", MATRIX_DIAG_12))),
+            ("C2_MID_RC", RC12[mid]),
+            ("C2_DIAG", MATRIX_DIAG_12),
+            ("C2_EXT", flat(external_matrix()), "uint32_t"))),
     }
 
 
@@ -204,8 +217,9 @@ def build() -> float:
         getattr(lib, name).argtypes = [p, p, ll, p]
     for name in ("poseidon_hash_leaves", "poseidon2_hash_leaves"):
         getattr(lib, name).argtypes = [p, p, i, ll, p]
-    lib.poseidon_merkle_tree.argtypes = [p, p, ll, i, p,
-                                         ctypes.POINTER(ctypes.c_int)]
+    for name in ("poseidon_merkle_tree", "poseidon2_merkle_tree"):
+        getattr(lib, name).argtypes = [p, p, ll, i, p,
+                                       ctypes.POINTER(ctypes.c_int)]
     for name in KERNELS:
         getattr(lib, name).restype = i
     _LIB = lib

@@ -5,8 +5,8 @@ prove_openings:508 with the final-poly-times-X tweak at :547).
 A commit is: iNTT (from values), coset LDE at rate 2^rate_bits (K1), the
 leaf digests hashed by the hasher straight off the [num, N] LDE columns in
 natural order (K3 or K7), then bit-reversed into leaf order, and the
-compress levels (K2 or K6). The leaves themselves are the LDE rows in
-bit-reversed order.
+layers above them (the tree entry of K2 or K6). The leaves themselves are
+the LDE rows in bit-reversed order.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Merkle tree with cap (reference: plonky2/src/hash/merkle_tree.rs).
 
 The leaf layer is one batched hash_or_noop of the hasher (K3 or K7); the
-layers above it come from the hasher's `merkle_layers` (K2's tree kernel,
-or one K6 compress per level) as views into one buffer; layer l, node i
-covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer with
-2^cap_height nodes.
+layers above it come from the hasher's `merkle_layers` (the tree entry of
+K2 or K6, at most two launches a tree) as views into one buffer; layer l,
+node i covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer
+with 2^cap_height nodes.
 Leaves and digest layers stay on the tensor's device; proofs and rows are
 gathered there and copied to the host once per call.
 """

@@ -18,8 +18,12 @@ Device side, on int64 tensors:
   tensor and `permute_plain` for a CPU one;
 - `hash_leaves(x [L, N])` is kernel K7, hash_no_pad over each column, for a
   CUDA tensor and `hash_leaves_plain` for a CPU one;
-- `hash_or_noop_columns`, `hash_or_noop` and `compress` are built on those
-  two (`sponge.py`).
+- `merkle_layers(leaf_digests [N, 4], cap_height)` is K6's tree kernel,
+  every layer above the leaves in at most two launches, for a CUDA tensor
+  and `merkle_layers_plain` (the per-level loop of compress over the plain
+  permutation, into the kernel's buffer at its offsets) for a CPU one;
+- `hash_or_noop_columns`, `hash_or_noop` and `compress` are built on the
+  first two (`sponge.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,14 @@ from .sponge import W
 HALF_F = ROUNDS_F // 2
 # apply_m_4 as a matrix: [t6, t5, t7, t4] of poseidon2.rs:329-345
 M4 = ((5, 7, 1, 3), (4, 6, 1, 1), (1, 3, 5, 7), (1, 1, 4, 6))
+
+
+def external_matrix() -> list[list[int]]:
+    """The external layer as one small-constant 12 x 12 matrix: 2 * M4 on
+    the diagonal blocks, M4 off them (the three M4 blocks plus the
+    broadcast sum of the blocks)."""
+    return [[(2 if r // 4 == c // 4 else 1) * M4[r % 4][c % 4]
+             for c in range(W)] for r in range(W)]
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +126,9 @@ def permute_many_host(states: np.ndarray) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _tables(device):
-    """The external layer as one small-constant [12, 12] matrix (2 * M4 on
-    the diagonal blocks, M4 off them), the round constants and the
-    internal layer's diagonal."""
-    ext = np.array([[(2 if r // 4 == c // 4 else 1) * M4[r % 4][c % 4]
-                     for c in range(W)] for r in range(W)], dtype=np.int64)
+    """The external matrix, the round constants and the internal layer's
+    diagonal."""
+    ext = np.array(external_matrix(), dtype=np.int64)
     t = lambda a: gl.from_u64(np.asarray(a, dtype=np.uint64), device)
     return dict(
         ext=torch.as_tensor(ext, device=device).reshape(W, W, 1),
@@ -160,6 +170,15 @@ def hash_leaves_plain(x: torch.Tensor) -> torch.Tensor:
     return sponge.hash_leaves_plain(x, permute_lanes_plain)
 
 
+def merkle_layers_plain(leaf_digests: torch.Tensor,
+                        cap_height: int) -> list:
+    """Plain PyTorch version of the tree kernel: the layers above [N, 4]
+    leaf digests down to the cap, as views into one tree buffer."""
+    return sponge.merkle_layers_by_level(
+        leaf_digests, cap_height,
+        lambda left, right: sponge.compress(left, right, permute_plain))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and the functions built on them
 # ---------------------------------------------------------------------------
@@ -192,6 +211,7 @@ def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 def merkle_layers(leaf_digests: torch.Tensor, cap_height: int) -> list:
-    """The layers above [N, 4] leaf digests down to the cap, one K6
-    compress per level, as views into one tree buffer."""
-    return sponge.merkle_layers_by_level(leaf_digests, cap_height, compress)
+    """K6 tree wrapper: the layers above [N, 4] leaf digests down to the cap
+    (layer 1 first, the cap last), as views into one tree buffer."""
+    return sponge.launch_merkle_tree("poseidon2_merkle_tree", leaf_digests,
+                                     cap_height, merkle_layers_plain)

@@ -2,15 +2,16 @@
 4-element digests; reference: hash/hashing.rs:35-64, plonk/config.rs:74-88).
 
 Each permutation module (`poseidon.py`, `poseidon2.py`) owns a permutation
-kernel and a fused leaf-sponge kernel with their plain versions; the
-functions here launch a kernel through its wrapper contract (a CPU tensor
-takes the plain version, a CUDA tensor the kernel, anything else raises)
-and build hash_or_noop, compress and the Merkle layers on top of them.
+kernel, a fused leaf-sponge kernel and a Merkle tree kernel (the kernels of
+`csrc/sponge_kernels.cuh` on its permutation) with their plain versions;
+the functions here launch a kernel through its wrapper contract (a CPU
+tensor takes the plain version, a CUDA tensor the kernel, anything else
+raises) and build hash_or_noop and compress on top of them.
 
 A tree's layers above its n leaves live in one [n - 2^cap_height, 4] buffer,
 layer l (1 for the leaves' parents) at row n - n / 2^(l-1) (`tree_offsets`):
-the Poseidon tree kernel writes it in at most two launches, and
-`merkle_layers_by_level` fills the same buffer one compress per level.
+each tree kernel writes it in at most two launches, and the plain version,
+`merkle_layers_by_level`, fills the same buffer one compress per level.
 """
 
 from __future__ import annotations

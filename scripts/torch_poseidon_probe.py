@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
-"""Probe the port's Poseidon kernels (K2 `poseidon_permute`, K3
-`poseidon_hash_leaves`, and `poseidon_merkle_tree` where the library has it)
-on one NVIDIA GPU:
+"""Probe the port's Poseidon or Poseidon2 kernels on one NVIDIA GPU:
 
-    python3 scripts/torch_poseidon_probe.py [--out DIR]
-        [--variants MACRO=VALUE[,MACRO=VALUE...] ...]
+    python3 scripts/torch_poseidon_probe.py [--hasher poseidon|poseidon2]
+        [--out DIR] [--variants MACRO=VALUE[,MACRO=VALUE...] ...]
 
-Prints, for the kernel library built from plonky2_tpu_torch/csrc:
+The kernels of a hasher: its permutation (K2 `poseidon_permute`, K6
+`poseidon2_permute`), its leaf sponge (K3 `poseidon_hash_leaves`, K7
+`poseidon2_hash_leaves`) and, where the library has it, its Merkle tree
+entry (`*_merkle_tree`; without it the hasher's `merkle_layers` is timed as
+it is). Prints, for the kernel library built from plonky2_tpu_torch/csrc:
   - ptxas registers and spills of every kernel (`-Xptxas -v`);
-  - the SASS of every kernel function by opcode (`cuobjdump -sass`): the
-    static instruction count, by opcode and by class;
-  - K2 at 2^19, 2^15, 2^10, 256 and 16 states and K3 at [135|84|20|16, 2^17]:
-    device time per launch from torch.profiler (the kernels' own spans),
-    device time from CUDA events with the queue filled ahead by a sleep
-    kernel, and the wrapper's time from CUDA events around back-to-back
-    calls (which is the host's time whenever that is the longer);
-  - every output bit-checked against the plain PyTorch version.
-With --variants it first builds csrc/poseidon.cu alone once for each
+  - the SASS of the hasher's kernel functions by opcode (`cuobjdump -sass`):
+    the static instruction count, by opcode and by class;
+  - the permutation at 2^19, 2^15, 2^10, 256 and 16 states, the leaf sponge
+    at [135|84|20|16, 2^17] and at the FRI leaves [32, 2^13|2^9|2^5], and
+    the tree of 2^17, 2^13, 2^9 and 2^5 leaves at cap height 4: device time
+    per call from torch.profiler (the kernels' own spans), device time from
+    CUDA events with the queue filled ahead by a sleep kernel, and the
+    wrapper's time from CUDA events around back-to-back calls (which is the
+    host's time whenever that is the longer);
+  - every output bit-checked against the plain PyTorch version, and an
+    edge batch (0, 1, p - 1, 2^32 - 1, 2^32 and the non-canonical p, p + 1,
+    2^64 - 1, with a state of all 2^64 - 1) through the permutation: a
+    difference there is reported, and the script then exits 1 after its
+    last line.
+With --variants it first builds the hasher's source alone once for each
 given set of macro definitions (forms of the source selected with `#if`),
-and times each against the others in turns (K2 at 2^19 and 16 states, K3
-at [135, 2^17]), every output bit-checked.
-The SASS listing of the Poseidon kernels goes to DIR (default
+and times each against the others in turns (the permutation at 2^19 and 16
+states, the leaf sponge at [135, 2^17] and at the FRI leaves [32,
+2^13|2^9|2^5], the tree at 2^17 leaves where the library has it), every output bit-checked.
+The SASS listing of the hasher's kernels goes to DIR (default
 chiprun_out/probe). Imports nothing of JAX or of the JAX package; exits
 non-zero without a GPU.
 """
@@ -29,14 +38,15 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import glob
+import importlib
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
-import ctypes
 
 sys.modules["jax"] = None
 sys.modules["plonky2_tpu"] = None
@@ -47,6 +57,12 @@ import torch  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+# hasher -> (module, source, C entry prefix)
+HASHERS = {"poseidon": ("plonky2_tpu_torch.hash.poseidon", "poseidon.cu",
+                        "poseidon"),
+           "poseidon2": ("plonky2_tpu_torch.hash.poseidon2", "poseidon2.cu",
+                         "poseidon2")}
+
 CLASSES = (  # opcode prefix -> class, first match wins
     ("IMAD.WIDE", "imad.wide"), ("IMAD.HI", "imad.hi"),
     ("IMAD.MOV", "move"), ("IMAD.SHL", "shift"), ("IMAD.IADD", "add"),
@@ -56,7 +72,8 @@ CLASSES = (  # opcode prefix -> class, first match wins
     ("SHL", "shift"), ("LOP3", "logic"), ("MOV", "move"),
     ("LDC", "const load"), ("ULDC", "const load"), ("LDG", "global load"),
     ("STG", "global store"), ("LDS", "shared"), ("STS", "shared"),
-    ("BRA", "branch"), ("BAR", "barrier"), ("U", "uniform"),
+    ("SHFL", "shuffle"), ("BRA", "branch"), ("BAR", "barrier"),
+    ("U", "uniform"),
 )
 
 
@@ -67,32 +84,31 @@ def opclass(op: str) -> str:
     return "other"
 
 
-def sass_histograms(lib_path: str, out_dir: str) -> dict:
-    """{function: Counter(opcode)} from cuobjdump -sass of the library."""
+def sass_histograms(lib_path: str, out_dir: str, source: str) -> dict:
+    """{function: Counter(opcode)} of the functions compiled from `source`
+    (cuobjdump -sass of the library); their listing goes to out_dir."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    keep, fn = [], None
-    for line in text.splitlines():
-        if "Function :" in line:
-            fn = line
-        if fn is not None and "poseidon_cu" in fn:
-            keep.append(line)
-    with open(os.path.join(out_dir, os.path.basename(lib_path) + ".sass"),
-              "w") as f:
-        f.write("\n".join(keep))
-    hists, fn = {}, None
+    tag = "_" + source.replace(".", "_") + "_"
+    hists, fn, keep = {}, None, []
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = m.group(1)
-            hists[fn] = collections.Counter()
+            fn = m.group(1) if tag in m.group(1) else None
+            if fn is not None:
+                hists[fn] = collections.Counter()
+        if fn is None:
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if m and fn is not None:
+        keep.append(line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m:
             hists[fn][m.group(1)] += 1
+    with open(os.path.join(out_dir, os.path.basename(lib_path) + ".sass"),
+              "w") as f:
+        f.write("\n".join(keep))
     return hists
 
 
@@ -134,8 +150,7 @@ def device_ms_events(fn, reps: int) -> float:
 
 
 def wrapper_ms(fn, reps: int) -> float:
-    """ms per call of back-to-back wrapper calls, CUDA events (the chip
-    smoke's `_time_ms`)."""
+    """ms per call of back-to-back wrapper calls, CUDA events."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -148,8 +163,8 @@ def wrapper_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_variants(variants, out_dir: str) -> dict:
-    """{variant: ctypes library} of csrc/poseidon.cu alone, built with each
+def build_variants(variants, out_dir: str, source: str, prefix: str) -> dict:
+    """{variant: ctypes library} of csrc/`source` alone, built with each
     variant's macros ((name, value) pairs), one nvcc per variant, all
     started together."""
     from plonky2_tpu_torch import backend
@@ -157,11 +172,11 @@ def build_variants(variants, out_dir: str) -> dict:
     for name, text in backend._tables().items():
         with open(os.path.join(tmp, name), "w") as f:
             f.write(text)
-    src = os.path.join(backend.CSRC_DIR, "poseidon.cu")
+    src = os.path.join(backend.CSRC_DIR, source)
     jobs = {}
     for variant in variants:
         tag = "_".join(f"{k}{v}" for k, v in variant)
-        lib = os.path.join(tmp, f"libposeidon_{tag}.so")
+        lib = os.path.join(tmp, f"lib{prefix}_{tag}.so")
         cmd = [backend.nvcc_path(), *backend.NVCC_FLAGS, "-shared",
                "-Xptxas", "-v", *(f"-D{k}={v}" for k, v in variant),
                "-I", tmp, "-I", backend.CSRC_DIR, "-o", lib, src]
@@ -178,44 +193,66 @@ def build_variants(variants, out_dir: str) -> dict:
             if "Compiling entry" in line or "registers" in line or \
                     "spill" in line:
                 print("  " + line.strip())
-        for fn, hist in sass_histograms(path, out_dir).items():
+        for fn, hist in sass_histograms(path, out_dir, source).items():
             print(f"  SASS {fn}: {sum(hist.values())} instructions")
         lib = ctypes.CDLL(path)
-        lib.poseidon_permute.argtypes = [p, p, ll, p]
-        lib.poseidon_hash_leaves.argtypes = [p, p, i, ll, p]
+        getattr(lib, f"{prefix}_permute").argtypes = [p, p, ll, p]
+        getattr(lib, f"{prefix}_hash_leaves").argtypes = [p, p, i, ll, p]
+        if hasattr(lib, f"{prefix}_merkle_tree"):
+            getattr(lib, f"{prefix}_merkle_tree").argtypes = [
+                p, p, ll, i, p, ctypes.POINTER(ctypes.c_int)]
         libs[key] = lib
     return libs
 
 
-def compare_variants(libs: dict, device) -> None:
+def compare_variants(libs: dict, device, mod, prefix: str) -> None:
     from plonky2_tpu_torch.field import goldilocks as gl
-    from plonky2_tpu_torch.hash import poseidon as ps
+    from plonky2_tpu_torch.hash import sponge
     rng = np.random.default_rng(5)
     rand = lambda *s: gl.from_u64(rng.integers(0, gl.ORDER, size=s,
                                                dtype=np.uint64), device)
     states = {b: rand(b, 12) for b in (1 << 19, 16)}
-    leaves = {n: rand(135, n) for n in (1 << 17, 1 << 12)}
-    want = {b: ps.permute_plain(s) for b, s in states.items()}
-    want_leaves = ps.hash_leaves_plain(leaves[1 << 12])
+    narrow = [(32, 1 << 13), (32, 1 << 9), (32, 1 << 5)]
+    leaves = {s: rand(*s) for s in [(135, 1 << 17), (135, 1 << 12)] + narrow}
+    digests = rand(1 << 17, 4)
+    want = {b: mod.permute_plain(s) for b, s in states.items()}
+    want_leaves = {s: mod.hash_leaves_plain(leaves[s])
+                   for s in [(135, 1 << 12)] + narrow}
+    want_tree = torch.cat(sponge.merkle_layers_by_level(
+        digests, 4, lambda a, b: sponge.compress(a, b, mod.permute_plain)))
     stream = lambda: torch.cuda.current_stream(device).cuda_stream
 
     def perm(lib, s):
         out = torch.empty_like(s)
-        assert lib.poseidon_permute(s.data_ptr(), out.data_ptr(),
-                                    s.shape[0], stream()) == 0
+        assert getattr(lib, f"{prefix}_permute")(
+            s.data_ptr(), out.data_ptr(), s.shape[0], stream()) == 0
         return out
 
     def leaf(lib, x):
         out = torch.empty((x.shape[1], 4), dtype=torch.int64, device=device)
-        assert lib.poseidon_hash_leaves(x.data_ptr(), out.data_ptr(),
-                                        x.shape[0], x.shape[1],
-                                        stream()) == 0
+        assert getattr(lib, f"{prefix}_hash_leaves")(
+            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            stream()) == 0
         return out
 
+    def tree(lib, d):
+        out = torch.empty((d.shape[0] - 16, 4), dtype=torch.int64,
+                          device=device)
+        launches = ctypes.c_int(0)
+        assert getattr(lib, f"{prefix}_merkle_tree")(
+            d.data_ptr(), out.data_ptr(), d.shape[0], 4, stream(),
+            ctypes.byref(launches)) == 0
+        return out
+
+    has_tree = all(hasattr(lib, f"{prefix}_merkle_tree")
+                   for lib in libs.values())
     for key, lib in libs.items():
         for b, s in states.items():
             assert torch.equal(perm(lib, s), want[b]), (key, b)
-        assert torch.equal(leaf(lib, leaves[1 << 12]), want_leaves), key
+        for s, w in want_leaves.items():
+            assert torch.equal(leaf(lib, leaves[s]), w), (key, s)
+        if has_tree:
+            assert torch.equal(tree(lib, digests), want_tree), key
     times = collections.defaultdict(list)
     for key in list(libs) + list(reversed(list(libs))):
         lib = libs[key]
@@ -224,7 +261,13 @@ def compare_variants(libs: dict, device) -> None:
         times[key, "permute 16"].append(device_ms_events(
             lambda: perm(lib, states[16]), 200))
         times[key, "leaves 135x2^17"].append(device_ms_events(
-            lambda: leaf(lib, leaves[1 << 17]), 10))
+            lambda: leaf(lib, leaves[135, 1 << 17]), 10))
+        for L, n in narrow:
+            times[key, f"leaves {L}x2^{n.bit_length() - 1}"].append(
+                device_ms_events(lambda: leaf(lib, leaves[L, n]), 100))
+        if has_tree:
+            times[key, "tree 2^17"].append(device_ms_events(
+                lambda: tree(lib, digests), 50))
     for (key, what), ts in sorted(times.items()):
         print(f"variant {dict(key)} {what}: device ms "
               + ", ".join(f"{t:.5f}" for t in ts))
@@ -232,6 +275,7 @@ def compare_variants(libs: dict, device) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--hasher", choices=sorted(HASHERS), default="poseidon")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "probe"))
     ap.add_argument("--variants", nargs="*", default=[],
@@ -242,8 +286,9 @@ def main() -> int:
         return 1
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.field import goldilocks as gl
-    from plonky2_tpu_torch.hash import poseidon as ps
 
+    mod_name, source, prefix = HASHERS[args.hasher]
+    mod = importlib.import_module(mod_name)
     os.makedirs(args.out, exist_ok=True)
     device = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -252,7 +297,8 @@ def main() -> int:
     if args.variants:
         variants = [tuple(tuple(d.split("=", 1)) for d in v.split(","))
                     for v in args.variants]
-        compare_variants(build_variants(variants, args.out), device)
+        compare_variants(build_variants(variants, args.out, source, prefix),
+                         device, mod, prefix)
     print(f"build {backend.build():.3f} s", flush=True)
     for line in backend.PTXAS_REPORT.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -260,10 +306,7 @@ def main() -> int:
     lib_path = max(glob.glob(os.path.join(backend.BUILD_DIR,
                                           "libplonky2_kernels-*.so")),
                    key=os.path.getmtime)
-    for fn, hist in sass_histograms(lib_path, args.out).items():
-        if "oseidon" not in fn and "permute" not in fn and "leaves" not in \
-                fn and "merkle" not in fn:
-            continue
+    for fn, hist in sass_histograms(lib_path, args.out, source).items():
         classes = collections.Counter()
         for op, n in hist.items():
             classes[opclass(op)] += n
@@ -274,55 +317,71 @@ def main() -> int:
     rng = np.random.default_rng(11)
     rand = lambda *s: gl.from_u64(rng.integers(0, gl.ORDER, size=s,
                                                dtype=np.uint64), device)
+    has_tree = hasattr(backend.lib(), f"{prefix}_merkle_tree")
     rows = []
     for b in (1 << 19, 1 << 15, 1 << 10, 256, 16):
         s = rand(b, 12)
-        run = lambda: ps.permute(s)
-        assert torch.equal(run(), ps.permute_plain(s)), b
+        run = lambda: mod.permute(s)
+        assert torch.equal(run(), mod.permute_plain(s)), b
         reps = 20 if b >= 1 << 15 else 200
         prof, per = device_ms_profiler(run, reps, "permute")
-        rows.append(("poseidon_permute", [b], prof, per,
+        rows.append((f"{prefix}_permute", [b], prof, per,
                      device_ms_events(run, reps), wrapper_ms(run, reps)))
-    for L in (135, 84, 20, 16):
-        x = rand(L, 1 << 17)
-        run = lambda: ps.hash_leaves(x)
-        assert torch.equal(run(), ps.hash_leaves_plain(x)), L
-        prof, per = device_ms_profiler(run, 10, "leaves")
-        rows.append(("poseidon_hash_leaves", [L, 1 << 17], prof, per,
-                     device_ms_events(run, 10), wrapper_ms(run, 10)))
-    edge = np.array([0, 1, gl.ORDER - 1, 2**32 - 1, 2**32, gl.ORDER,
-                     2**64 - 1], dtype=np.uint64)
-    e = rng.integers(0, 2**64, size=(4096, 12), dtype=np.uint64)
-    e[:2048] = edge[rng.integers(0, len(edge), size=(2048, 12))]
-    e = torch.from_numpy(e.view(np.int64)).to(device)
-    assert torch.equal(ps.permute(e), ps.permute_plain(e)), "edge batch"
-    print("edge batch: permute bit-exact")
-    if hasattr(ps, "merkle_layers"):
+    for L, n in ((135, 1 << 17), (84, 1 << 17), (20, 1 << 17),
+                 (16, 1 << 17), (32, 1 << 13), (32, 1 << 9), (32, 1 << 5)):
+        x = rand(L, n)
+        run = lambda: mod.hash_leaves(x)
+        assert torch.equal(run(), mod.hash_leaves_plain(x)), (L, n)
+        reps = 10 if n >= 1 << 17 else 100
+        prof, per = device_ms_profiler(run, reps, "leaves")
+        rows.append((f"{prefix}_hash_leaves", [L, n], prof, per,
+                     device_ms_events(run, reps), wrapper_ms(run, reps)))
+    from plonky2_tpu_torch.hash import sponge
+    plain_tree = lambda d, cap: sponge.merkle_layers_by_level(
+        d, cap, lambda a, b: sponge.compress(a, b, mod.permute_plain))
+    if has_tree:
         for lg_n, cap in ((20, 4), (17, 0), (11, 3), (10, 10), (8, 2), (1, 0)):
             d = rand(1 << lg_n, 4)
-            got, want = ps.merkle_layers(d, cap), ps.merkle_layers_plain(d, cap)
+            got, want = mod.merkle_layers(d, cap), plain_tree(d, cap)
             assert len(got) == len(want) == lg_n - cap and all(
                 torch.equal(a, b) for a, b in zip(got, want)), (lg_n, cap)
         print("merkle tree bit-exact at (20,4) (17,0) (11,3) (10,10) (8,2) "
               "(1,0)")
-        for lg_n in (17, 13, 9, 5):
-            d = rand(1 << lg_n, 4)
-            got = torch.cat(ps.merkle_layers(d, 4))
-            assert torch.equal(got, torch.cat(ps.merkle_layers_plain(d, 4))
-                               ), lg_n
-            run = lambda: ps.merkle_layers(d, 4)
-            prof, per = device_ms_profiler(run, 50, "merkle")
-            rows.append(("poseidon_merkle_tree", [1 << lg_n, 4], prof, per,
-                         device_ms_events(run, 50), wrapper_ms(run, 50)))
+    for lg_n in (17, 13, 9, 5):
+        d = rand(1 << lg_n, 4)
+        got = torch.cat(mod.merkle_layers(d, 4))
+        assert torch.equal(got, torch.cat(plain_tree(d, 4))), lg_n
+        run = lambda: mod.merkle_layers(d, 4)
+        # without the tree entry the levels are permutation launches
+        prof, per = device_ms_profiler(run, 50, "merkle" if has_tree
+                                       else "permute")
+        rows.append((f"{prefix}_merkle_tree" if has_tree
+                     else f"{prefix} merkle_layers", [1 << lg_n, 4], prof,
+                     per, device_ms_events(run, 50), wrapper_ms(run, 50)))
     for name, shape, prof, per, ev, wrap in rows:
         print(f"{name} {shape}: profiler device {prof:.5f} ms "
               f"({per:g} launches/call), events device {ev:.5f} ms, "
               f"wrapper {wrap:.5f} ms")
+
+    edge = np.array([0, 1, gl.ORDER - 1, 2**32 - 1, 2**32, gl.ORDER,
+                     gl.ORDER + 1, 2**64 - 1], dtype=np.uint64)
+    e = rng.integers(0, 2**64, size=(4096, 12), dtype=np.uint64)
+    e[:2048] = edge[rng.integers(0, len(edge), size=(2048, 12))]
+    e[0] = 2**64 - 1
+    e = torch.from_numpy(e.view(np.int64)).to(device)
+    got, want = mod.permute(e), mod.permute_plain(e)
+    bad = (got != want).any(dim=1)
+    edge_ok = not bool(bad.any())
+    print(f"edge batch: {prefix}_permute " + (
+        "bit-exact" if edge_ok else
+        f"DIFFERS from its plain version in {int(bad.sum())} of 4096 states"
+        f" (the all-(2^64 - 1) state {'differs' if bool(bad[0]) else 'agrees'})"
+    ))
     print(json.dumps({"probe": [dict(name=n, shape=s, profiler_ms=p,
                                      launches_per_call=c, device_ms=e,
                                      wrapper_ms=w)
                                 for n, s, p, c, e, w in rows]}))
-    return 0
+    return 0 if edge_ok else 1
 
 
 if __name__ == "__main__":

@@ -171,24 +171,28 @@ def test_tree_plain_path_vs_jax(lg_n, cap_height):
         assert offs[-1] == (1 << lg_n) - (1 << cap_height)
 
 
+@pytest.mark.parametrize("hasher", ["poseidon", "poseidon2"])
 @pytest.mark.parametrize("shape,cap_height", [((8, 3), 1), ((8, 4), 4),
                                               ((6, 4), 1), ((8, 4), -1)])
-def test_tree_wrapper_rejects_bad_input(shape, cap_height):
+def test_tree_wrapper_rejects_bad_input(shape, cap_height, hasher):
     """Digests that are not [2^k, 4], or a cap above the root, raise before
-    any launch."""
+    any launch, through the tree entry of either hasher."""
+    from plonky2_tpu_torch.hash.hashers import POSEIDON2
     d = torch.zeros(shape, dtype=torch.int64)
+    merkle_layers = {"poseidon": ps.merkle_layers,
+                     "poseidon2": POSEIDON2.merkle_layers}[hasher]
     with pytest.raises((ValueError, AssertionError)):
-        ps.merkle_layers(d, cap_height)
+        merkle_layers(d, cap_height)
 
 
 # ---------------------------------------------------------------------------
 # The generated constant tables of csrc/poseidon.cu
 # ---------------------------------------------------------------------------
 
-def _kernel_tables() -> dict:
-    """{name: [int]} parsed from the generated poseidon_tables.h."""
+def _kernel_tables(header: str = "poseidon_tables.h") -> dict:
+    """{name: [int]} parsed from a generated constant header."""
     from plonky2_tpu_torch import backend
-    text = backend._tables()["poseidon_tables.h"]
+    text = backend._tables()[header]
     tables = {}
     for m in re.finditer(r"__constant__ (uint64_t|uint32_t) (\w+)\[(\d+)\]"
                          r" = \{([^}]*)\};", text):
