@@ -26,8 +26,10 @@ Phases, each of which raises on failure:
   7. edge batches: K2 and K6 (both entries each), K3 and K7 against their
      plain versions on states and leaves made of 0, 1, 2^32 - 1, 2^32,
      p - 1 = 2^64 - 2^32 and the non-canonical p, p + 1 and 2^64 - 1, mixed
-     with random ones, on states of all 2^64 - 1, and on leaves of p - 1
-     (bit-exact);
+     with random ones, on states of all 2^64 - 1, and on leaves of p - 1;
+     K1's forward (2^14, with and without a shift, and 2^14 -> 2^17) and
+     inverse (2^14 and 2^17) on canonical rows of 0, 1, p - 1, 2^32 - 1 and
+     2^32 mixed with random values, and on rows of all p - 1 (bit-exact);
   8. PoW stress: the full output of one 2^19-state wave of K2 and of K6
      against the host C permutation, then waves from the fib100 and
      fib21-poseidon2 transcript states through both hashers and from random
@@ -255,7 +257,7 @@ def _dummy(name: str, gc, device, kernels: tuple):
 def dummy_2_14(device):
     from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
     return _dummy("dummy-2^14", PoseidonGoldilocksConfig, device,
-                  ("ntt_dit", "poseidon_permute", "poseidon_merkle_tree",
+                  ("ntt", "poseidon_permute", "poseidon_merkle_tree",
                    "poseidon_hash_leaves"))
 
 
@@ -263,7 +265,7 @@ def dummy_2_14(device):
 def dummy_2_14_poseidon2(device):
     from plonky2_tpu_torch.hash.hashers import CONFIGS
     return _dummy("dummy-2^14-poseidon2", CONFIGS[P2], device,
-                  ("ntt_dit", "poseidon2_permute", "poseidon2_merkle_tree",
+                  ("ntt", "poseidon2_permute", "poseidon2_merkle_tree",
                    "poseidon2_hash_leaves"))
 
 
@@ -325,11 +327,17 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
     (MIN_IMAD_PER_FIELD_MUL each) over the card's IMAD rate at `clock_mhz`.
     Adds, reductions and small-constant products are not counted: a
     floor."""
-    if name == "ntt_dit":
-        batch, lg_n, start = shape
-        n = 1 << lg_n
-        nbytes = 8 * (2 * batch * n + n // 2)
-        imads = MIN_IMAD_PER_FIELD_MUL * batch * (lg_n - start) * (n // 2)
+    if name == "ntt":
+        # B n read, B N written, the stage-major twiddle table (N) and the
+        # shift or scale table (n) read once; one general multiply per
+        # butterfly of the stages not skipped, and one per element for the
+        # shift (forward) or the scale (inverse)
+        batch, lg_n, rate, direction, shift = shape
+        n, N = 1 << lg_n, 1 << (lg_n + rate)
+        table = n if shift is not None or direction == "inverse" else 0
+        nbytes = 8 * (batch * n + batch * N + N + table)
+        muls = batch * (lg_n * (N // 2) + (n if table else 0))
+        imads = MIN_IMAD_PER_FIELD_MUL * muls
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
         imads = FIELD_MULS[name] * MIN_IMAD_PER_FIELD_MUL * shape[0]
@@ -368,11 +376,14 @@ def _cases(name, shape, rand):
     from plonky2_tpu_torch.hash import poseidon2 as ps2
     from plonky2_tpu_torch.ops import ntt
 
-    if name == "ntt_dit":
-        batch, lg_n, start = shape
+    if name == "ntt":
+        batch, lg_n, rate, direction, shift = shape
         x = rand(batch, 1 << lg_n)
-        return (lambda: ntt.dit(x, start), lambda: ntt.dit_plain(x, start),
-                x.numel())
+        if direction == "inverse":
+            return (lambda: ntt.inverse(x, shift),
+                    lambda: ntt.inverse_plain(x, shift), x.numel())
+        return (lambda: ntt.forward(x, rate, shift),
+                lambda: ntt.forward_plain(x, rate, shift), x.numel() << rate)
     mod = ps2 if name.startswith("poseidon2") else ps
     if name.endswith("_merkle_tree"):
         n, cap_height = shape
@@ -431,7 +442,8 @@ def kernels_vs_plain(device, runs, clock_mhz):
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
                 f"({bound_by}), launched {shapes.get(shape, 0)}")
             per_shape.append({"shape": list(shape),
-                              "launches": shapes.get(shape, 0), "ms": ms,
+                              "launches": shapes.get(shape, 0),
+                              "launches_per_call": per_call, "ms": ms,
                               "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms})
             if largest is None or size > largest[0]:
@@ -442,12 +454,17 @@ def kernels_vs_plain(device, runs, clock_mhz):
                                  f"version (max abs err {worst})")
         # device ms per warm prove: each shape's launches in that prove
         # times its device ms per launch
-        warm_ms = {}
+        warm_ms, warm_calls = {}, {}
         for phase_name, (_, _, warm) in runs.items():
             if warm[kern.name]:
                 warm_ms[phase_name] = sum(
                     n / dev_ms[shape][1] * dev_ms[shape][0]
                     for shape, n in warm[kern.name].items())
+                warm_calls[phase_name] = sum(
+                    n / dev_ms[shape][1]
+                    for shape, n in warm[kern.name].items())
+        log(f"{kern.name}: calls per warm prove {warm_calls}, device ms per"
+            f" warm prove {warm_ms}")
         _, shape, ms, wrap_ms, plain_ms, bound_ms, bound_by = largest
         entry = {"name": kern.name, "route": "cuda", "source": kern.source,
                  "replaces": kern.replaces, "launches": launches,
@@ -457,6 +474,7 @@ def kernels_vs_plain(device, runs, clock_mhz):
                  # no single PyTorch call computes a Goldilocks NTT, a
                  # Poseidon/Poseidon2 permutation, sponge or Merkle tree
                  "library_ms": None, "warm_prove_ms": warm_ms,
+                 "warm_prove_calls": warm_calls,
                  "per_shape": per_shape}
         if kern.name == "poseidon_permute":
             # K4 (v1) and K5 (v2) are tilings of K2's permutation on the
@@ -476,11 +494,13 @@ EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, P, P + 1, (1 << 64) - 1]
 
 @phase("edge batches")
 def edge_batches(device, table):
-    """K2 and K6 (both entries each), K3 and K7 on edge values against their
-    plain versions; raises their max_abs_err in `table`."""
+    """K2 and K6 (both entries each), K3 and K7 on edge values, and K1 (both
+    entries) on canonical edge values, against their plain versions; raises
+    their max_abs_err in `table`."""
     from plonky2_tpu_torch.field import goldilocks as gl
     from plonky2_tpu_torch.hash import poseidon as ps
     from plonky2_tpu_torch.hash import poseidon2 as ps2
+    from plonky2_tpu_torch.ops import ntt
 
     rng = np.random.default_rng(13)
 
@@ -510,6 +530,33 @@ def edge_batches(device, table):
             functools.partial(mod.merkle_layers, cap_height=4),
             functools.partial(mod.merkle_layers_plain, cap_height=4),
             [batch(1 << 13, 4), full(1 << 9, 4), ones(1 << 9, 4)])
+    # K1: canonical edge values (0, 1, p - 1, 2^32 - 1, 2^32) mixed with
+    # random ones, and rows of all p - 1; forward at 2^14 (rate 0, with and
+    # without a shift) and 2^14 -> 2^17, inverse at 2^14 and 2^17
+    canon = np.asarray([0, 1, P - 1, (1 << 32) - 1, 1 << 32], dtype=np.uint64)
+
+    def canonical_batch(*shape):
+        x = rng.integers(0, P, size=shape, dtype=np.uint64)
+        pick = rng.random(shape) < 0.5
+        x[pick] = canon[rng.integers(0, len(canon), size=int(pick.sum()))]
+        return torch.from_numpy(x.view(np.int64)).to(device)
+
+    def k1(forward, inverse):
+        """Rows of 2^14: forward at rate 0 without and with a shift, the
+        LDE to 2^17, inverse without and with a shift; rows of 2^17: the
+        coset inverse."""
+        def calls(x):
+            if x.shape[-1] == 1 << 17:
+                return [inverse(x, 7).reshape(-1)]
+            return [y.reshape(-1) for y in (
+                forward(x, 0, None), forward(x, 0, 7), forward(x, 3, 7),
+                inverse(x, None), inverse(x, 7))]
+        return calls
+
+    checks["ntt"] = (
+        k1(ntt.forward, ntt.inverse), k1(ntt.forward_plain, ntt.inverse_plain),
+        [canonical_batch(135, 1 << 14), full(4, 1 << 14),
+         canonical_batch(2, 1 << 17), full(2, 1 << 17)])
     by_name = {e["name"]: e for e in table}
     for name, (run, plain, cases) in checks.items():
         for x in cases:

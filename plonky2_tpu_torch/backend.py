@@ -47,8 +47,10 @@ class Kernel:
 
 
 KERNELS = {
-    "ntt_dit": Kernel(
-        "ntt_dit", "plonky2_tpu_torch/csrc/ntt.cu",
+    # both entries, ntt_forward and ntt_inverse; a shape is (batch, lg_n,
+    # rate_bits, "forward" or "inverse", shift or None)
+    "ntt": Kernel(
+        "ntt", "plonky2_tpu_torch/csrc/ntt.cu",
         "plonky2_tpu/ops/ntt_mxu_pallas.py:94"),
     "poseidon_permute": Kernel(
         "poseidon_permute", "plonky2_tpu_torch/csrc/poseidon.cu",
@@ -210,7 +212,9 @@ def build() -> float:
         PTXAS_REPORT = "".join(report)
     lib = ctypes.CDLL(lib_path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ntt_dit.argtypes = [p, p, ll, i, i, p]
+    out_count = ctypes.POINTER(ctypes.c_int)
+    lib.ntt_forward.argtypes = [p, p, ll, ll, i, i, p, p, p, out_count]
+    lib.ntt_inverse.argtypes = [p, p, ll, i, p, p, p, out_count]
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     for name in ("poseidon_permute", "poseidon2_permute"):
@@ -218,9 +222,9 @@ def build() -> float:
     for name in ("poseidon_hash_leaves", "poseidon2_hash_leaves"):
         getattr(lib, name).argtypes = [p, p, i, ll, p]
     for name in ("poseidon_merkle_tree", "poseidon2_merkle_tree"):
-        getattr(lib, name).argtypes = [p, p, ll, i, p,
-                                       ctypes.POINTER(ctypes.c_int)]
-    for name in KERNELS:
+        getattr(lib, name).argtypes = [p, p, ll, i, p, out_count]
+    for name in [k for k in KERNELS if k != "ntt"] + ["ntt_forward",
+                                                      "ntt_inverse"]:
         getattr(lib, name).restype = i
     _LIB = lib
     return time.perf_counter() - t0

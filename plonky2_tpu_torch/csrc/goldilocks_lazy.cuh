@@ -1,5 +1,5 @@
 // Goldilocks (p = 2^64 - 2^32 + 1) on values anywhere in [0, 2^64): the
-// arithmetic of the Poseidon and Poseidon2 kernels.
+// arithmetic of every kernel (the NTT, Poseidon and Poseidon2).
 //
 // Every function is a PTX carry chain on 32-bit limbs: a product is four
 // partial products, and a 128-bit result is reduced through the carry flag
@@ -123,6 +123,55 @@ __device__ __forceinline__ uint64_t add_canon(uint64_t a, uint64_t c) {
       "}"
       : "=r"(r0), "=r"(r1)
       : "l"(a), "l"(c));
+  return pack(r0, r1);
+}
+
+// a + b mod p for any a, b < 2^64; the result is < 2^64. A carry out of
+// a + b is taken back as 2^64 = 2^32 - 1; adding that can carry once more
+// (only when a + b >= 2^65 - 2^32 + 1), and the second 2^32 - 1 cannot
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, m;\n\t"
+      "mov.b64 {a0, a1}, %2;\n\t"
+      "mov.b64 {b0, b1}, %3;\n\t"
+      "add.cc.u32 %0, a0, b0;\n\t"
+      "addc.cc.u32 %1, a1, b1;\n\t"
+      "addc.u32 m, 0, 0;\n\t"
+      "neg.s32 m, m;\n\t"
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.u32 m, 0, 0;\n\t"
+      "neg.s32 m, m;\n\t"
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.u32 %1, %1, 0;\n\t"
+      "}"
+      : "=r"(r0), "=r"(r1)
+      : "l"(a), "l"(b));
+  return pack(r0, r1);
+}
+
+// a - b mod p for any a, b < 2^64; the result is < 2^64. A borrow out of
+// a - b left 2^64 = 2^32 - 1 too much, taken off; that can borrow once
+// more (only when the difference came out below 2^32 - 1), and the second
+// 2^32 - 1 cannot
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, m;\n\t"
+      "mov.b64 {a0, a1}, %2;\n\t"
+      "mov.b64 {b0, b1}, %3;\n\t"
+      "sub.cc.u32 %0, a0, b0;\n\t"
+      "subc.cc.u32 %1, a1, b1;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, m;\n\t"
+      "subc.cc.u32 %1, %1, 0;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, m;\n\t"
+      "subc.u32 %1, %1, 0;\n\t"
+      "}"
+      : "=r"(r0), "=r"(r1)
+      : "l"(a), "l"(b));
   return pack(r0, r1);
 }
 

@@ -1,100 +1,303 @@
-// K1: batched radix-2 DIT butterflies for the Goldilocks NTT.
+// K1: the batched Goldilocks NTT as the whole transform the prover calls.
 //
 // Replaces plonky2_tpu/ops/ntt_mxu_pallas.py `_level_fn` (:94, body `_kernel`
 // :40): one level of a four-step DFT done as int8-limb banded matmuls on the
-// TPU's MXU. Here the transform itself is ported, not that formulation: the
-// caller bit-reverses the input (and, for an LDE, repeats each entry
-// 2^rate_bits times), this kernel runs stages [start_stage, lg_n) of the
-// radix-2 DIT network in place, and the output is in natural order, equal to
-// plonky2_tpu/ops/ntt.py at every size 2^1..2^17.
+// TPU's MXU. Here the transform itself is ported, not that formulation. Two
+// entries, each reading its input once and writing its output once:
+// - `ntt_forward`: coefficients [B, n] in natural order to values
+//   [B, n 2^rate] with out[b, j] = sum_i c[b, i] shift^i w_N^(ij), N = n
+//   2^rate: the coset LDE, or fft / coset_fft at rate 0;
+// - `ntt_inverse`: values [B, n] to coefficients, out[b, i] = scale[i]
+//   sum_j v[b, j] w_n^(-ij), where scale[i] = shift^(-i) / n.
+// Both are one radix-2 DIT network over the bit-reversed input x, with x[k]
+// = c'[rev(k >> rate)] (each coefficient repeated 2^rate times, which is
+// the zero-padded input after its first `rate` stages, so those are
+// skipped), output in natural order and canonical. The forward's shift
+// powers are multiplied in as x is gathered; the inverse runs on the
+// inverse root's twiddles, so it needs no index reversal, and its store
+// multiplies by the scale table.
 //
-// Bound: device memory. A butterfly is one 64x64->128 multiply and a few
-// adds per 16 bytes read and written, far below the card's integer rate, so
-// the design minimises passes over the array: a shared-memory kernel runs all
-// stages that stay inside a tile of 2^11 elements (16 KB) in one read and one
-// write, and only the remaining lg_n - 11 stages (6 at 2^17) make one global
-// pass each. Twiddles come from one table w^0..w^{n/2-1} uploaded once per
-// size; stage s reads it with stride 2^(lg_n-1-s).
+// Bound: by bytes, device memory (B n reads and B N writes of 8 bytes
+// against one 64 x 64-bit product a butterfly); in practice the integer
+// issue rate, at about 50 SASS instructions a butterfly (PERF.md). The
+// design keeps the array's trips through device memory to one or two and
+// the instructions a butterfly few:
+// - A row of N <= 2^kRowLg elements is one block: gathered into shared
+//   memory, every stage there, stored once. One launch.
+// - A longer row takes two launches, each one pass: pass A (`ntt_tiles`)
+//   runs the stages inside contiguous tiles of 2^lg_T in shared memory;
+//   pass B (`ntt_columns`) runs the rest, one thread a column of N / 2^lg_T
+//   elements at stride 2^lg_T, in registers, so that a warp's loads and
+//   stores are contiguous. The tile is 2^kTileLg, shrunk for small batches
+//   until pass A has kMinBlocks blocks: a block of 16 warps runs about one
+//   butterfly a clock, so a call of few rows must spread over the SMs.
+// - Stages run three at a time in registers (radix 8), so shared memory is
+//   read and written once per three stages.
+// - Twiddles come from one table a direction and size, stage-major
+//   (tw[2^s + j] = w_(2^(s+1))^j), so the threads of a warp read
+//   neighbouring entries; it is 8 N bytes and stays in L2.
+// - The arithmetic of goldilocks_lazy.cuh: carry chains with values left
+//   anywhere in [0, 2^64), made canonical once, at the final store.
+// - The bit-reversed gather reads each input element once, but a warp's 32
+//   reads land in 32 sectors; tiles whose reads share sectors run next to
+//   each other, so the sectors come from L2.
+// Measured and dropped (PERF.md): clusters of blocks whose top stages read
+// each other's shared memory, one block a 2^14 row, four stages a round,
+// the butterfly in one asm block, a padded shared-memory layout.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "goldilocks.cuh"
+#include "goldilocks_lazy.cuh"
 
 namespace {
 
-constexpr int kTileLg = 11;
+constexpr int kRowLg = 10;          // rows up to 2^kRowLg: one block each
+constexpr int kTileLg = 13;         // pass A's largest tile for longer rows
+// pass A's tile shrinks until it has kMinBlocks blocks, down to
+// 2^kMinTileLg and to pass B columns of 2^kShrinkColLg
+constexpr int kMinTileLg = 9;
+constexpr int kMinBlocks = 512;
+constexpr int kShrinkColLg = 4;
+constexpr int kMaxColLg = 6;        // pass B's columns: up to 2^6 elements
+constexpr int kRadixLg = 3;         // stages a round in registers
+constexpr int kThreads = 512;
+constexpr int kColThreads = 128;
 
-__global__ void dit_shared(uint64_t* x, const uint64_t* tw, int lg_n,
-                           int lg_tile, int start, int end) {
-  extern __shared__ uint64_t s[];
-  const int tile = 1 << lg_tile;
-  uint64_t* base = x + (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) s[i] = base[i];
-  __syncthreads();
-  for (int st = start; st < end; ++st) {
-    const int m = 1 << st;
-    const int shift = lg_n - 1 - st;
-    for (int k = threadIdx.x; k < tile / 2; k += blockDim.x) {
-      const int j = k & (m - 1);
-      const int i0 = ((k >> st) << (st + 1)) | j;
-      const uint64_t w = tw[(size_t)j << shift];
-      const uint64_t u = s[i0];
-      const uint64_t t = gl_mul(w, s[i0 + m]);
-      s[i0] = gl_add(u, t);
-      s[i0 + m] = gl_sub(u, t);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) base[i] = s[i];
+struct Args {
+  const uint64_t* in;    // row b at in + b * in_stride, n elements
+  uint64_t* out;         // [B, N]
+  const uint64_t* tw;    // [N], tw[2^s + j] = w_(2^(s+1))^(+-j)
+  const uint64_t* pre;   // [n] multiplied in at the gather, or null
+  const uint64_t* post;  // [N] multiplied in at the final store, or null
+  long long in_stride;
+  long long batch;
+  int lg_N;
+  int rate;
+  int lg_T;              // pass A's tile (two passes only)
+};
+
+__device__ __forceinline__ uint32_t rev_bits(uint32_t x, int bits) {
+  return bits == 0 ? 0 : __brev(x) >> (32 - bits);
 }
 
-__global__ void dit_stage(uint64_t* x, const uint64_t* tw, int lg_n, int st,
-                          long long total) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= total) return;
-  const long long half_mask = (1LL << (lg_n - 1)) - 1;
-  const long long row = b >> (lg_n - 1);
-  const long long k = b & half_mask;
-  const long long m = 1LL << st;
-  const long long j = k & (m - 1);
-  const long long i0 = ((k >> st) << (st + 1)) | j;
-  uint64_t* r = x + (row << lg_n);
-  const uint64_t w = tw[j << (lg_n - 1 - st)];
-  const uint64_t u = r[i0];
-  const uint64_t t = gl_mul(w, r[i0 + m]);
-  r[i0] = gl_add(u, t);
-  r[i0 + m] = gl_sub(u, t);
+// (y, x) <- (y + w x, y - w x) mod p for any y, x, w < 2^64
+__device__ __forceinline__ void butterfly(uint64_t& y, uint64_t& x,
+                                          uint64_t w) {
+  const uint64_t t = mul(w, x);
+  x = sub_lazy(y, t);
+  y = add_lazy(y, t);
+}
+
+// s[k] = x[k0 + k] for k < 2^lg_T (lg_T >= rate): the shifted input,
+// bit-reversed and each element repeated 2^rate times
+__device__ __forceinline__ void gather(const Args& a, long long row,
+                                       uint32_t k0, int lg_T, uint64_t* s) {
+  const int lg_n = a.lg_N - a.rate;
+  const uint64_t* in = a.in + row * a.in_stride;
+  const uint32_t count = 1u << (lg_T - a.rate);
+  for (uint32_t e = threadIdx.x; e < count; e += blockDim.x) {
+    const uint32_t i = rev_bits((k0 >> a.rate) + e, lg_n);
+    uint64_t v = __ldg(in + i);
+    if (a.pre) v = mul(v, __ldg(a.pre + i));
+    uint64_t* d = s + (e << a.rate);
+    if (a.rate == 0) {
+      d[0] = v;
+    } else {
+      for (int r = 0; r < (1 << a.rate); r += 2)
+        *reinterpret_cast<ulonglong2*>(d + r) = make_ulonglong2(v, v);
+    }
+  }
+}
+
+// Stages s0 .. s0 + K - 1 on v[q] = x[base + q 2^s0], b = base mod 2^s0.
+// Stage s pairs k and k + 2^s (bit s of k clear) with twiddle
+// w_(2^(s+1))^(k mod 2^s).
+template <int K>
+__device__ __forceinline__ void butterflies(uint64_t* v, const uint64_t* tw,
+                                            int s0, uint32_t b) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int m = 1 << u;
+    const uint64_t* t = tw + (1u << (s0 + u)) + b;
+#pragma unroll
+    for (int q = 0; q < (1 << K); ++q) {
+      if (q & m) continue;
+      butterfly(v[q], v[q + m], __ldg(t + ((q & (m - 1)) << s0)));
+    }
+  }
+}
+
+// K stages from s0 on a tile of 2^lg_T elements in shared memory
+template <int K>
+__device__ __forceinline__ void round_shared(uint64_t* s, const uint64_t* tw,
+                                             int lg_T, int s0) {
+  const uint32_t low = (1u << s0) - 1;
+  for (uint32_t g = threadIdx.x; g < (1u << (lg_T - K)); g += blockDim.x) {
+    const uint32_t b = g & low;
+    const uint32_t base = b | ((g >> s0) << (s0 + K));
+    uint64_t v[1 << K];
+#pragma unroll
+    for (int q = 0; q < (1 << K); ++q) v[q] = s[base + (q << s0)];
+    butterflies<K>(v, tw, s0, b);
+#pragma unroll
+    for (int q = 0; q < (1 << K); ++q) s[base + (q << s0)] = v[q];
+  }
+}
+
+// stages [start, lg_T) of a tile in shared memory in the fewest rounds of
+// at most kRadixLg stages, as even as they can be
+__device__ __forceinline__ void stages_shared(uint64_t* s, const uint64_t* tw,
+                                              int lg_T, int start) {
+  for (int st = start; st < lg_T;) {
+    const int left = lg_T - st;
+    const int rounds = (left + kRadixLg - 1) / kRadixLg;
+    const int k = (left + rounds - 1) / rounds;
+    if (k == 3) {
+      round_shared<3>(s, tw, lg_T, st);
+    } else if (k == 2) {
+      round_shared<2>(s, tw, lg_T, st);
+    } else {
+      round_shared<1>(s, tw, lg_T, st);
+    }
+    st += k;
+    __syncthreads();
+  }
+}
+
+// the final store of out[k]: times post[k], canonical
+__device__ __forceinline__ uint64_t finish(const Args& a, uint64_t v,
+                                          uint32_t k) {
+  if (a.post) v = mul(v, __ldg(a.post + k));
+  return canonical(v);
+}
+
+// one block a row of N <= 2^kRowLg
+__global__ void __launch_bounds__(kThreads) ntt_row(Args a) {
+  extern __shared__ uint64_t s[];
+  const long long row = blockIdx.x;
+  gather(a, row, 0, a.lg_N, s);
+  __syncthreads();
+  stages_shared(s, a.tw, a.lg_N, a.rate);
+  uint64_t* out = a.out + (row << a.lg_N);
+  for (uint32_t k = threadIdx.x; k < (1u << a.lg_N); k += blockDim.x)
+    out[k] = finish(a, s[k], k);
+}
+
+// pass A: stages [rate, lg_T) of tile t of a row, left unreduced in out
+__global__ void __launch_bounds__(kThreads, 2) ntt_tiles(Args a) {
+  extern __shared__ uint64_t s[];
+  const int lg_T = a.lg_T;
+  const int lg_tiles = a.lg_N - lg_T;
+  const long long row = blockIdx.x >> lg_tiles;
+  // tile rev(i) after tile rev(i - 1): their gathers read the same sectors
+  const uint32_t t = rev_bits(blockIdx.x & ((1u << lg_tiles) - 1), lg_tiles);
+  gather(a, row, t << lg_T, lg_T, s);
+  __syncthreads();
+  stages_shared(s, a.tw, lg_T, a.rate);
+  uint64_t* out = a.out + (row << a.lg_N) + ((size_t)t << lg_T);
+  for (uint32_t k = threadIdx.x; k < (1u << lg_T); k += blockDim.x)
+    out[k] = s[k];
+}
+
+// pass B: stages [lg_T, lg_N) on column u of a row, x[u + q 2^lg_T]
+template <int C_LG>
+__global__ void __launch_bounds__(kColThreads) ntt_columns(Args a) {
+  const int lg_T = a.lg_N - C_LG;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= a.batch << lg_T) return;
+  const long long row = idx >> lg_T;
+  const uint32_t u = idx & ((1u << lg_T) - 1);
+  uint64_t* x = a.out + (row << a.lg_N) + u;
+  uint64_t v[1 << C_LG];
+#pragma unroll
+  for (int q = 0; q < (1 << C_LG); ++q) v[q] = x[(size_t)q << lg_T];
+  butterflies<C_LG>(v, a.tw, lg_T, u);
+#pragma unroll
+  for (int q = 0; q < (1 << C_LG); ++q)
+    x[(size_t)q << lg_T] = finish(a, v[q], u + (q << lg_T));
+}
+
+
+template <int C_LG>
+void launch_columns(const Args& a, cudaStream_t st) {
+  const long long threads = a.batch << (a.lg_N - C_LG);
+  ntt_columns<C_LG><<<(unsigned)((threads + kColThreads - 1) / kColThreads),
+                      kColThreads, 0, st>>>(a);
+}
+
+// Runs the transform of `a`; writes the number of kernels launched.
+int transform(Args a, void* stream, int* launches) {
+  *launches = 0;
+  if (a.batch <= 0) return 0;
+  if (a.lg_N < 0 || a.rate < 0 || a.rate > a.lg_N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.lg_N <= kRowLg) {
+    const int bytes = 8 << a.lg_N;
+    int threads = a.lg_N > 3 ? 1 << (a.lg_N - 3) : 32;
+    threads = threads < 32 ? 32 : threads > kThreads ? kThreads : threads;
+    ntt_row<<<(unsigned)a.batch, threads, bytes, st>>>(a);
+    *launches = 1;
+    return (int)cudaGetLastError();
+  }
+  // the largest tile below the row, shrunk while pass A has fewer than
+  // kMinBlocks blocks; pass B's columns take the stages above it
+  int lg_T = a.lg_N - 1 < kTileLg ? a.lg_N - 1 : kTileLg;
+  int lowest = a.lg_N - kShrinkColLg > kMinTileLg ? a.lg_N - kShrinkColLg
+                                                   : kMinTileLg;
+  if (a.rate > lowest) lowest = a.rate;
+  while (lg_T > lowest && (a.batch << (a.lg_N - lg_T)) < kMinBlocks) --lg_T;
+  const int c = a.lg_N - lg_T;
+  if (c > kMaxColLg || a.rate > lg_T) return (int)cudaErrorInvalidValue;
+  a.lg_T = lg_T;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      ntt_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 << kTileLg);
+  if (set != cudaSuccess) return (int)set;
+  const int threads = lg_T - 3 < 9 ? 1 << (lg_T - 3) : kThreads;
+  ntt_tiles<<<(unsigned)(a.batch << c), threads, 8 << lg_T, st>>>(a);
+  *launches = 1;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  switch (c) {
+    case 1: launch_columns<1>(a, st); break;
+    case 2: launch_columns<2>(a, st); break;
+    case 3: launch_columns<3>(a, st); break;
+    case 4: launch_columns<4>(a, st); break;
+    case 5: launch_columns<5>(a, st); break;
+    default: launch_columns<6>(a, st); break;
+  }
+  *launches = 2;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: [batch, 2^lg_n] contiguous, bit-reversed order in, natural order out.
-// tw: [2^(lg_n-1)] powers of the primitive 2^lg_n-th root of unity.
-extern "C" int ntt_dit(void* x, const void* tw, long long batch, int lg_n,
-                       int start_stage, void* stream) {
-  if (lg_n < 1 || start_stage >= lg_n || batch <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint64_t* xp = static_cast<uint64_t*>(x);
-  const uint64_t* twp = static_cast<const uint64_t*>(tw);
-  const int lg_tile = lg_n < kTileLg ? lg_n : kTileLg;
-  if (start_stage < lg_tile) {
-    const long long tiles = batch << (lg_n - lg_tile);
-    const int threads = 1 << (lg_tile - 1);
-    dit_shared<<<(unsigned)tiles, threads, sizeof(uint64_t) << lg_tile, s>>>(
-        xp, twp, lg_n, lg_tile, start_stage, lg_tile);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long total = batch << (lg_n - 1);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  for (int st = start_stage > lg_tile ? start_stage : lg_tile; st < lg_n;
-       ++st) {
-    dit_stage<<<blocks, threads, 0, s>>>(xp, twp, lg_n, st, total);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+// out [batch, 2^(lg_n + rate_bits)] = the (coset) LDE of the rows of `in`
+// (row b at in + b * in_stride elements, 2^lg_n canonical coefficients):
+// shift_powers [2^lg_n] (or null for the subgroup itself), tw the forward
+// stage-major table of 2^(lg_n + rate_bits) entries.
+extern "C" int ntt_forward(void* out, const void* in, long long in_stride,
+                           long long batch, int lg_n, int rate_bits,
+                           const void* shift_powers, const void* tw,
+                           void* stream, int* launches) {
+  Args a{static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+         static_cast<const uint64_t*>(tw),
+         static_cast<const uint64_t*>(shift_powers), nullptr, in_stride,
+         batch, lg_n + rate_bits, rate_bits, 0};
+  return transform(a, stream, launches);
+}
+
+// out [batch, 2^lg_n] = the coefficients of the canonical values `in`
+// [batch, 2^lg_n]: scale [2^lg_n] = shift^(-i) / n, tw_inv the inverse
+// root's stage-major table of 2^lg_n entries.
+extern "C" int ntt_inverse(void* out, const void* in, long long batch,
+                           int lg_n, const void* scale, const void* tw_inv,
+                           void* stream, int* launches) {
+  Args a{static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+         static_cast<const uint64_t*>(tw_inv), nullptr,
+         static_cast<const uint64_t*>(scale), 1LL << lg_n, batch, lg_n, 0,
+         0};
+  return transform(a, stream, launches);
 }
 
 extern "C" const char* cuda_error_string(int code) {

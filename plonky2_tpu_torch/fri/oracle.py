@@ -94,7 +94,6 @@ class PolynomialBatch:
         rate_bits = fri_params.config.rate_bits
         pad = GF2.zeros((n * ((1 << rate_bits) - 1),), device)
         lde_coeffs = GF2.cat([shifted, pad])
-        lde_values = GF2(ntt.coset_lde(shifted.c0, rate_bits),
-                         ntt.coset_lde(shifted.c1, rate_bits))
+        lde_values = ntt.coset_lde_ext(shifted, rate_bits)
         return fri_proof([o.merkle_tree for o in oracles], lde_coeffs,
                          lde_values, challenger, fri_params)

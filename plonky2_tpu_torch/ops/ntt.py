@@ -6,13 +6,18 @@ transform scales the coefficients by powers of the shift; the LDE folds the
 shift in BEFORE the zero padding and skips the first rate_bits butterfly
 stages (each bit-reversed coefficient repeated 2^rate_bits times).
 
-The butterfly network is kernel K1 (`csrc/ntt.cu`): `dit()` launches it for a
-CUDA tensor and runs `dit_plain()` for a CPU tensor. Bit-reversal, the coset
-shift and the 1/n scale stay as torch ops around it.
+Every transform is one call of kernel K1 (`csrc/ntt.cu`) for a CUDA tensor:
+`forward` (the coset LDE, and fft / coset_fft at rate 0) or `inverse`
+(ifft / coset_ifft). Beside the launch the wrapper allocates the output and,
+on first use of a size, shift or direction, builds the cached twiddle, shift
+and scale tables. A CPU tensor takes the plain versions, `forward_plain` and
+`inverse_plain`: the composition of the shift multiply, the bit-reversal
+gather, the repeat and the butterfly stages of `dit_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import torch
@@ -37,6 +42,18 @@ def half_twiddles(lg_n: int, device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def stage_twiddles(lg_n: int, inverse: bool, device) -> torch.Tensor:
+    """K1's table of n entries, stage-major: entry 2^s + j is w^j for w the
+    primitive 2^(s+1)-th root of unity (its inverse for the inverse
+    transform), j < 2^s; entry 0 is 1."""
+    root = ref.primitive_root_of_unity(lg_n)
+    half = gl.powers(ref.inverse(root) if inverse else root,
+                     max((1 << lg_n) // 2, 1), device)
+    return torch.cat([gl.const(1, device, (1,))] + [
+        half[::1 << (lg_n - 1 - s)][:1 << s] for s in range(lg_n)])
+
+
+@lru_cache(maxsize=None)
 def _perm(kind: str, n: int, device) -> torch.Tensor:
     p = reverse_index_bits_perm(n) if kind == "rev" else ifft_reverse_perm(n)
     return torch.as_tensor(p, dtype=torch.int64, device=device)
@@ -47,9 +64,18 @@ def _shift_powers(shift: int, n: int, device) -> torch.Tensor:
     return gl.powers(shift, n, device)
 
 
+@lru_cache(maxsize=None)
+def inverse_scale(shift: int | None, n: int, device) -> torch.Tensor:
+    """The inverse's store scale: shift^(-i) / n (1 / n without a shift)."""
+    n_inv = ref.inverse_2exp(log2_strict(n))
+    if shift is None:
+        return gl.const(n_inv, device, (n,))
+    return gl.mul_const(_shift_powers(ref.inverse(shift), n, device), n_inv)
+
+
 def dit_plain(x: torch.Tensor, start_stage: int) -> torch.Tensor:
-    """Plain PyTorch version of K1: stages [start_stage, lg_n) of the radix-2
-    DIT network over the last axis (bit-reversed in, natural order out)."""
+    """Stages [start_stage, lg_n) of the radix-2 DIT network over the last
+    axis (bit-reversed in, natural order out)."""
     n = x.shape[-1]
     lg_n = log2_strict(n)
     tw = half_twiddles(lg_n, x.device)
@@ -63,75 +89,148 @@ def dit_plain(x: torch.Tensor, start_stage: int) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
-def dit(x: torch.Tensor, start_stage: int) -> torch.Tensor:
-    """K1 wrapper: the kernel for a CUDA tensor, `dit_plain` for a CPU one."""
-    n = x.shape[-1]
-    lg_n = log2_strict(n)
-    if backend.plain_path(x, "ntt_dit"):
-        return dit_plain(x, start_stage)
-    if start_stage >= lg_n:
-        return x
-    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-    out.copy_(x)
-    backend.require_cuda_int64(out, "ntt_dit")
-    tw = half_twiddles(lg_n, x.device)
-    batch = out.numel() // n
-    rc = backend.lib().ntt_dit(out.data_ptr(), tw.data_ptr(), batch, lg_n,
-                               start_stage, backend.stream(out))
-    backend.check(rc, "ntt_dit")
-    backend.KERNELS["ntt_dit"].launched((batch, lg_n, start_stage))
-    return out
-
-
-def fft(coeffs: torch.Tensor) -> torch.Tensor:
-    """values[j] = P(g^j) over the size-n two-adic subgroup; last axis."""
-    n = coeffs.shape[-1]
-    return dit(coeffs.index_select(-1, _perm("rev", n, coeffs.device)), 0)
-
-
-def ifft(values: torch.Tensor) -> torch.Tensor:
-    n = values.shape[-1]
-    buf = fft(values).index_select(-1, _perm("ifft", n, values.device))
-    return gl.mul_const(buf, ref.inverse_2exp(log2_strict(n)))
-
-
-def coset_fft(coeffs: torch.Tensor,
-              shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
-    n = coeffs.shape[-1]
-    return fft(gl.mul(coeffs, _shift_powers(shift, n, coeffs.device)))
-
-
-def coset_ifft(values: torch.Tensor,
-               shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
-    n = values.shape[-1]
-    return gl.mul(ifft(values),
-                  _shift_powers(ref.inverse(shift), n, values.device))
-
-
-def lde_fft(coeffs: torch.Tensor, rate_bits: int,
-            shift: int | None = None) -> torch.Tensor:
-    """Evaluate on a 2^rate_bits-times larger (coset of the) subgroup,
-    skipping the first rate_bits butterfly stages."""
+def forward_plain(coeffs: torch.Tensor, rate_bits: int,
+                  shift: int | None) -> torch.Tensor:
+    """Plain PyTorch version of K1's forward entry."""
     n = coeffs.shape[-1]
     if shift is not None:
         coeffs = gl.mul(coeffs, _shift_powers(shift, n, coeffs.device))
     x = coeffs.index_select(-1, _perm("rev", n, coeffs.device))
     if rate_bits:
         x = x.repeat_interleave(1 << rate_bits, dim=-1)
-    return dit(x, rate_bits)
+    return dit_plain(x, rate_bits)
+
+
+def inverse_plain(values: torch.Tensor, shift: int | None) -> torch.Tensor:
+    """Plain PyTorch version of K1's inverse entry."""
+    n = values.shape[-1]
+    buf = forward_plain(values, 0, None).index_select(
+        -1, _perm("ifft", n, values.device))
+    out = gl.mul_const(buf, ref.inverse_2exp(log2_strict(n)))
+    if shift is not None:
+        out = gl.mul(out, _shift_powers(ref.inverse(shift), n, values.device))
+    return out
+
+
+def _launch(entry: str, shape: tuple, *args) -> None:
+    launches = ctypes.c_int(0)
+    rc = getattr(backend.lib(), entry)(*args, ctypes.byref(launches))
+    backend.check(rc, entry)
+    for _ in range(launches.value):
+        backend.KERNELS["ntt"].launched(shape)
+
+
+def _forward_rows(x: torch.Tensor, stride: int, batch: int, lead: tuple,
+                  rate_bits: int, shift: int | None) -> torch.Tensor:
+    """K1's forward entry over `batch` rows of n at `stride` elements from
+    x; the output [*lead, n 2^rate_bits]."""
+    n = x.shape[-1]
+    lg_n = log2_strict(n)
+    out = torch.empty(lead + (n << rate_bits,), dtype=torch.int64,
+                      device=x.device)
+    if batch:
+        sp = None if shift is None else \
+            _shift_powers(shift, n, x.device).data_ptr()
+        tw = stage_twiddles(lg_n + rate_bits, False, x.device)
+        _launch("ntt_forward", (batch, lg_n, rate_bits, "forward", shift),
+                out.data_ptr(), x.data_ptr(), stride, batch, lg_n, rate_bits,
+                sp, tw.data_ptr(), backend.stream(out))
+    return out
+
+
+def forward(coeffs: torch.Tensor, rate_bits: int = 0,
+            shift: int | None = None) -> torch.Tensor:
+    """K1 forward: out[..., j] = sum_i c[..., i] shift^i w_N^(ij) over
+    N = n 2^rate_bits points; the kernel for a CUDA tensor, `forward_plain`
+    for a CPU one."""
+    if backend.plain_path(coeffs, "ntt_forward"):
+        return forward_plain(coeffs, rate_bits, shift)
+    backend.require_cuda_int64(coeffs, "ntt_forward")
+    n = coeffs.shape[-1]
+    return _forward_rows(coeffs, n, coeffs.numel() // n, coeffs.shape[:-1],
+                         rate_bits, shift)
+
+
+def inverse(values: torch.Tensor, shift: int | None = None) -> torch.Tensor:
+    """K1 inverse: the coefficients c with values = coset_fft(c, shift)
+    (fft without a shift); the kernel for a CUDA tensor, `inverse_plain`
+    for a CPU one."""
+    if backend.plain_path(values, "ntt_inverse"):
+        return inverse_plain(values, shift)
+    backend.require_cuda_int64(values, "ntt_inverse")
+    n = values.shape[-1]
+    lg_n = log2_strict(n)
+    batch = values.numel() // n
+    out = torch.empty(values.shape, dtype=torch.int64, device=values.device)
+    if batch:
+        _launch("ntt_inverse", (batch, lg_n, 0, "inverse", shift),
+                out.data_ptr(), values.data_ptr(), batch, lg_n,
+                inverse_scale(shift, n, values.device).data_ptr(),
+                stage_twiddles(lg_n, True, values.device).data_ptr(),
+                backend.stream(out))
+    return out
+
+
+def forward_ext(coeffs: GF2, rate_bits: int = 0,
+                shift: int | None = None) -> GF2:
+    """`forward` of c0 and c1 of a 1-D extension array in one call: on the
+    card the kernel reads the two rows at the distance between them."""
+    c0, c1 = coeffs.c0, coeffs.c1
+    if backend.plain_path(c0, "ntt_forward"):
+        return GF2(forward_plain(c0, rate_bits, shift),
+                   forward_plain(c1, rate_bits, shift))
+    for c in (c0, c1):
+        backend.require_cuda_int64(c, "ntt_forward")
+    if c0.dim() != 1 or c1.shape != c0.shape:
+        raise ValueError(f"ntt_forward: an extension array of one row, got "
+                         f"{tuple(c0.shape)} and {tuple(c1.shape)}")
+    out = _forward_rows(c0, (c1.data_ptr() - c0.data_ptr()) // 8, 2, (2,),
+                        rate_bits, shift)
+    return GF2(out[0], out[1])
+
+
+def fft(coeffs: torch.Tensor) -> torch.Tensor:
+    """values[j] = P(g^j) over the size-n two-adic subgroup; last axis."""
+    return forward(coeffs)
+
+
+def ifft(values: torch.Tensor) -> torch.Tensor:
+    return inverse(values)
+
+
+def coset_fft(coeffs: torch.Tensor,
+              shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    return forward(coeffs, 0, shift)
+
+
+def coset_ifft(values: torch.Tensor,
+               shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    return inverse(values, shift)
+
+
+def lde_fft(coeffs: torch.Tensor, rate_bits: int,
+            shift: int | None = None) -> torch.Tensor:
+    """Evaluate on a 2^rate_bits-times larger (coset of the) subgroup,
+    skipping the first rate_bits butterfly stages."""
+    return forward(coeffs, rate_bits, shift)
 
 
 def coset_lde(coeffs: torch.Tensor, rate_bits: int,
               shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
     """PolynomialCoeffs::lde().coset_fft(): the shift powers apply to the
     padded coefficient vector, so they are folded in before padding."""
-    return lde_fft(coeffs, rate_bits, shift=shift)
+    return forward(coeffs, rate_bits, shift)
+
+
+def coset_lde_ext(coeffs: GF2, rate_bits: int,
+                  shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> GF2:
+    return forward_ext(coeffs, rate_bits, shift)
 
 
 def fft_ext(coeffs: GF2) -> GF2:
-    return GF2(fft(coeffs.c0), fft(coeffs.c1))
+    return forward_ext(coeffs)
 
 
 def coset_fft_ext(coeffs: GF2,
                   shift: int = MULTIPLICATIVE_GROUP_GENERATOR) -> GF2:
-    return GF2(coset_fft(coeffs.c0, shift), coset_fft(coeffs.c1, shift))
+    return forward_ext(coeffs, 0, shift)

@@ -32,6 +32,24 @@ states, the leaf sponge at [135, 2^17] and at the FRI leaves [32,
 The SASS listing of the hasher's kernels goes to DIR (default
 chiprun_out/probe). Imports nothing of JAX or of the JAX package; exits
 non-zero without a GPU.
+
+    python3 scripts/torch_poseidon_probe.py --kernel ntt [--variants ...]
+
+probes K1 (csrc/ntt.cu) instead, through the functions of
+plonky2_tpu_torch/ops/ntt.py that the prover calls, at its shapes:
+coset_lde of [135|20|16, 2^14] at rate 3, ifft of [135|20, 2^14],
+coset_ifft of [2, 2^17], coset_fft of [1, 2^13|2^9|2^5], coset_fft_ext
+at 2^13 and the FRI opening LDE of an extension row of 2^14 at rate 3.
+For each: its output against the plain composition (shift multiply,
+bit-reversal, repeat, `dit_plain`, index reversal, scale) on the card, its
+CUDA launches a call and their names (torch.profiler), device ms (CUDA
+events behind a sleep kernel) and wrapper ms; then ptxas registers and
+spills and the SASS of ntt.cu's kernels by class. The same functions exist
+in earlier forms of ops/ntt.py, so the probe times those too. With
+--variants it builds ntt.cu alone for each macro set and times its
+entries in turns (the LDE [135|20|2, 2^14 -> 2^17], the iNTT [135|20,
+2^14], the coset iNTT [2, 2^17], the fold [2, 2^13|2^9]), every output
+bit-checked.
 """
 
 from __future__ import annotations
@@ -166,7 +184,7 @@ def wrapper_ms(fn, reps: int) -> float:
 def build_variants(variants, out_dir: str, source: str, prefix: str) -> dict:
     """{variant: ctypes library} of csrc/`source` alone, built with each
     variant's macros ((name, value) pairs), one nvcc per variant, all
-    started together."""
+    started together; prints each one's ptxas lines and SASS sizes."""
     from plonky2_tpu_torch import backend
     tmp = tempfile.mkdtemp()
     for name, text in backend._tables().items():
@@ -183,7 +201,6 @@ def build_variants(variants, out_dir: str, source: str, prefix: str) -> dict:
         jobs[variant] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for key, (path, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -195,13 +212,20 @@ def build_variants(variants, out_dir: str, source: str, prefix: str) -> dict:
                 print("  " + line.strip())
         for fn, hist in sass_histograms(path, out_dir, source).items():
             print(f"  SASS {fn}: {sum(hist.values())} instructions")
-        lib = ctypes.CDLL(path)
+        libs[key] = ctypes.CDLL(path)
+    return libs
+
+
+def hasher_variants(variants, out_dir: str, source: str, prefix: str) -> dict:
+    """`build_variants` of a hasher's source, its entries bound."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = build_variants(variants, out_dir, source, prefix)
+    for lib in libs.values():
         getattr(lib, f"{prefix}_permute").argtypes = [p, p, ll, p]
         getattr(lib, f"{prefix}_hash_leaves").argtypes = [p, p, i, ll, p]
         if hasattr(lib, f"{prefix}_merkle_tree"):
             getattr(lib, f"{prefix}_merkle_tree").argtypes = [
                 p, p, ll, i, p, ctypes.POINTER(ctypes.c_int)]
-        libs[key] = lib
     return libs
 
 
@@ -273,8 +297,218 @@ def compare_variants(libs: dict, device, mod, prefix: str) -> None:
               + ", ".join(f"{t:.5f}" for t in ts))
 
 
+def profile_launches(fn, reps: int) -> tuple:
+    """(CUDA launches a call, device ms a call, {kernel name: [launches,
+    device ms] a call}) of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names, us = collections.Counter(), collections.Counter()
+    for e in p.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:60]
+            names[name] += 1
+            us[name] += e.device_time_total if hasattr(
+                e, "device_time_total") else e.cuda_time_total
+    return (sum(names.values()) / reps, sum(us.values()) / reps / 1e3,
+            {k: [v / reps, us[k] / reps / 1e3]
+             for k, v in names.most_common(8)})
+
+
+def ntt_plain(ntt, gl, x, rate_bits, shift, inverse):
+    """The plain composition around `dit_plain`, as ops/ntt.py has had it
+    in every form."""
+    from plonky2_tpu_torch.field import reference as ref
+    n = x.shape[-1]
+    lg_n = n.bit_length() - 1
+    if inverse:
+        buf = ntt.dit_plain(x.index_select(-1, ntt._perm("rev", n, x.device)),
+                            0).index_select(-1, ntt._perm("ifft", n,
+                                                          x.device))
+        out = gl.mul_const(buf, ref.inverse_2exp(lg_n))
+        return out if shift is None else gl.mul(
+            out, ntt._shift_powers(ref.inverse(shift), n, x.device))
+    if shift is not None:
+        x = gl.mul(x, ntt._shift_powers(shift, n, x.device))
+    x = x.index_select(-1, ntt._perm("rev", n, x.device))
+    if rate_bits:
+        x = x.repeat_interleave(1 << rate_bits, dim=-1)
+    return ntt.dit_plain(x, rate_bits)
+
+
+def _g(e: int) -> int:
+    """7^e mod p: the coset shifts of the prover (e = 1) and of the FRI
+    fold layers (7^(2^k))."""
+    return pow(7, e, (1 << 64) - (1 << 32) + 1)
+
+
+# (label, function name, batch, lg_n, rate_bits, shift, inverse)
+NTT_CASES = [
+    ("coset_lde [135, 2^14] rate 3", "coset_lde", 135, 14, 3, 7, False),
+    ("coset_lde [20, 2^14] rate 3", "coset_lde", 20, 14, 3, 7, False),
+    ("coset_lde [16, 2^14] rate 3", "coset_lde", 16, 14, 3, 7, False),
+    ("ifft [135, 2^14]", "ifft", 135, 14, 0, None, True),
+    ("ifft [20, 2^14]", "ifft", 20, 14, 0, None, True),
+    ("coset_ifft [2, 2^17]", "coset_ifft", 2, 17, 0, 7, True),
+    ("coset_fft [1, 2^13]", "coset_fft", 1, 13, 0, _g(16), False),
+    ("coset_fft [1, 2^9]", "coset_fft", 1, 9, 0, _g(256), False),
+    ("coset_fft [1, 2^5]", "coset_fft", 1, 5, 0, _g(4096), False),
+    ("coset_fft_ext 2^13", "coset_fft_ext", 2, 13, 0, _g(16), False),
+    ("coset LDE ext 2^14 rate 3", "coset_lde_ext", 2, 14, 3, 7, False),
+]
+
+
+def ntt_call(ntt, name, x, rate_bits, shift):
+    """The prover's call of `name` on x ([2, n] for the extension forms,
+    given as c0 and c1); earlier forms of ops/ntt.py have no
+    coset_lde_ext and transform c0 and c1 apart."""
+    from plonky2_tpu_torch.field.extension import GF2
+    if name == "coset_fft_ext":
+        g = ntt.coset_fft_ext(GF2(x[0], x[1]), shift)
+        return [g.c0, g.c1]
+    if name == "coset_lde_ext":
+        if hasattr(ntt, "coset_lde_ext"):
+            g = ntt.coset_lde_ext(GF2(x[0], x[1]), rate_bits)
+            return [g.c0, g.c1]
+        return [ntt.coset_lde(x[0], rate_bits), ntt.coset_lde(x[1], rate_bits)]
+    if name == "coset_lde":
+        return ntt.coset_lde(x, rate_bits)
+    if name in ("ifft",):
+        return ntt.ifft(x)
+    return getattr(ntt, name)(x, shift)
+
+
+def ntt_variants(variants, out_dir, device) -> None:
+    """Build csrc/ntt.cu alone for each macro set and time its entries in
+    turns, every output bit-checked against the plain composition."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.ops import ntt
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = build_variants(variants, out_dir, "ntt.cu", "ntt")
+    for lib in libs.values():
+        lib.ntt_forward.argtypes = [p, p, ll, ll, i, i, p, p, p,
+                                    ctypes.POINTER(ctypes.c_int)]
+        lib.ntt_inverse.argtypes = [p, p, ll, i, p, p, p,
+                                    ctypes.POINTER(ctypes.c_int)]
+    rng = np.random.default_rng(3)
+    stream = lambda: torch.cuda.current_stream(device).cuda_stream
+    cases = [("LDE [135, 2^14 -> 2^17]", 135, 14, 3, 7, False),
+             ("iNTT [135, 2^14]", 135, 14, 0, None, True),
+             ("LDE [20, 2^14 -> 2^17]", 20, 14, 3, 7, False),
+             ("iNTT [20, 2^14]", 20, 14, 0, None, True),
+             ("coset iNTT [2, 2^17]", 2, 17, 0, 7, True),
+             ("LDE [2, 2^14 -> 2^17]", 2, 14, 3, 7, False),
+             ("fold coset_fft [2, 2^13]", 2, 13, 0, _g(16), False),
+             ("fold coset_fft [2, 2^9]", 2, 9, 0, _g(256), False)]
+    inputs, wants = {}, {}
+    for label, b, lg, r, shift, inv in cases:
+        x = gl.from_u64(rng.integers(0, gl.ORDER, size=(b, 1 << lg),
+                                     dtype=np.uint64), device)
+        inputs[label] = x
+        wants[label] = ntt_plain(ntt, gl, x, r, shift, inv)
+
+    def call(lib, label, b, lg, r, shift, inv):
+        x = inputs[label]
+        out = torch.empty((b, 1 << (lg + r)), dtype=torch.int64,
+                          device=device)
+        n = ctypes.c_int(0)
+        if inv:
+            rc = lib.ntt_inverse(out.data_ptr(), x.data_ptr(), b, lg,
+                                 ntt.inverse_scale(shift, 1 << lg,
+                                                   device).data_ptr(),
+                                 ntt.stage_twiddles(lg, True,
+                                                    device).data_ptr(),
+                                 stream(), ctypes.byref(n))
+        else:
+            rc = lib.ntt_forward(out.data_ptr(), x.data_ptr(), 1 << lg, b,
+                                 lg, r, ntt._shift_powers(shift, 1 << lg,
+                                                          device).data_ptr(),
+                                 ntt.stage_twiddles(lg + r, False,
+                                                    device).data_ptr(),
+                                 stream(), ctypes.byref(n))
+        assert rc == 0, rc
+        return out, n.value
+
+    for key, lib in libs.items():
+        for case in cases:
+            got, n = call(lib, *case)
+            ok = torch.equal(got, wants[case[0]])
+            print(f"variant {dict(key)} {case[0]}: {n} launches, "
+                  f"{'bit-exact' if ok else 'DIFFERS'}")
+            assert ok, (key, case[0])
+    times = collections.defaultdict(list)
+    for key in list(libs) + list(reversed(list(libs))):
+        for case in cases:
+            reps = 20 if case[1] * (1 << (case[2] + case[3])) >= 1 << 20 \
+                else 200
+            times[key, case[0]].append(device_ms_events(
+                lambda: call(libs[key], *case), reps))
+    for (key, what), ts in sorted(times.items()):
+        print(f"variant {dict(key)} {what}: device ms "
+              + ", ".join(f"{t:.5f}" for t in ts))
+
+
+def ntt_main(args) -> int:
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.ops import ntt
+    device = torch.device("cuda", 0)
+    os.makedirs(args.out, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if args.variants:
+        ntt_variants([tuple(tuple(d.split("=", 1)) for d in v.split(","))
+                      for v in args.variants], args.out, device)
+    print(f"build {backend.build():.3f} s", flush=True)
+    for line in backend.PTXAS_REPORT.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(line.strip())
+    lib_path = max(glob.glob(os.path.join(backend.BUILD_DIR,
+                                          "libplonky2_kernels-*.so")),
+                   key=os.path.getmtime)
+    for fn, hist in sass_histograms(lib_path, args.out, "ntt.cu").items():
+        classes = collections.Counter()
+        for op, n in hist.items():
+            classes[opclass(op)] += n
+        print(f"SASS {fn}: {sum(hist.values())} instructions; by class "
+              + json.dumps(dict(classes.most_common())))
+    rng = np.random.default_rng(11)
+    rows, ok = [], True
+    for label, name, b, lg, r, shift, inv in NTT_CASES:
+        x = gl.from_u64(rng.integers(0, gl.ORDER, size=(b, 1 << lg),
+                                     dtype=np.uint64), device)
+        if b == 1:
+            x = x[0]
+        run = lambda: ntt_call(ntt, name, x, r, shift)
+        got = run()
+        same = torch.equal(torch.stack(got) if isinstance(got, list) else got,
+                           ntt_plain(ntt, gl, x, r, shift, inv))
+        ok &= same
+        reps = 10 if b * (1 << (lg + r)) >= 1 << 20 else 100
+        launches, prof_ms, names = profile_launches(run, reps)
+        ev = device_ms_events(run, reps)
+        wrap = wrapper_ms(run, reps)
+        rows.append(dict(call=label, bit_exact=same, launches=launches,
+                         profiler_ms=prof_ms, device_ms=ev, wrapper_ms=wrap,
+                         kernels=names))
+        print(f"{label}: {'bit-exact' if same else 'DIFFERS'}, "
+              f"{launches:g} CUDA launches/call, profiler device "
+              f"{prof_ms:.5f} ms, events device {ev:.5f} ms, wrapper "
+              f"{wrap:.5f} ms; {names}", flush=True)
+    print(json.dumps({"probe_ntt": rows}))
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=["hasher", "ntt"], default="hasher")
     ap.add_argument("--hasher", choices=sorted(HASHERS), default="poseidon")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "probe"))
@@ -284,6 +518,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_poseidon_probe.py: no CUDA device", file=sys.stderr)
         return 1
+    if args.kernel == "ntt":
+        return ntt_main(args)
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.field import goldilocks as gl
 
@@ -297,7 +533,7 @@ def main() -> int:
     if args.variants:
         variants = [tuple(tuple(d.split("=", 1)) for d in v.split(","))
                     for v in args.variants]
-        compare_variants(build_variants(variants, args.out, source, prefix),
+        compare_variants(hasher_variants(variants, args.out, source, prefix),
                          device, mod, prefix)
     print(f"build {backend.build():.3f} s", flush=True)
     for line in backend.PTXAS_REPORT.splitlines():

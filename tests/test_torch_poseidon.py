@@ -328,6 +328,34 @@ def _add_canon(a, c):
     return r0 | r1 << 32
 
 
+def _add_lazy(a, b):
+    """`add_lazy`, the NTT butterfly's add, for any a, b < 2^64."""
+    k = _Carry()
+    r0 = k.add_cc(a & M32, b & M32)
+    r1 = k.addc(a >> 32, b >> 32, cc=True)
+    m = (-k.addc(0, 0)) & M32
+    r0 = k.add_cc(r0, m)
+    r1 = k.addc(r1, 0, cc=True)
+    m = (-k.addc(0, 0)) & M32
+    r0 = k.add_cc(r0, m)
+    r1 = k.addc(r1, 0, last=True)
+    return r0 | r1 << 32
+
+
+def _sub_lazy(a, b):
+    """`sub_lazy`, the NTT butterfly's subtract, for any a, b < 2^64."""
+    k = _Carry()
+    r0 = k.sub_cc(a & M32, b & M32)
+    r1 = k.subc(a >> 32, b >> 32, cc=True)
+    m = k.subc(0, 0)
+    r0 = k.sub_cc(r0, m)
+    r1 = k.subc(r1, 0, cc=True)
+    m = k.subc(0, 0)
+    r0 = k.sub_cc(r0, m)
+    r1 = k.subc(r1, 0, last=True)
+    return r0 | r1 << 32
+
+
 def _mad_wide(a, b, c):
     d = a * b + c
     assert d < 1 << 64, "mad.wide.u32 accumulator overflow"
@@ -455,6 +483,54 @@ def test_model_reduce_lh_and_add_on_edge_operands():
         for c in [0, 1, M32, 1 << 32, P - 2, P - 1]:
             r = _add_canon(a, c)
             assert r < 1 << 64 and r % P == (a + c) % P, (a, c)
+
+
+@pytest.mark.parametrize("kind", ["edge", "random"])
+def test_model_lazy_add_and_sub(kind):
+    """The NTT's butterfly add and subtract on canonical and non-canonical
+    operands, the cases of a second carry and a second borrow among them."""
+    if kind == "edge":
+        ops = EDGE + [M32, 1 << 32, P - 1, 0, 1]
+    else:
+        ops = [int(v) for v in RNG.integers(0, 1 << 64, size=40,
+                                            dtype=np.uint64)]
+    for a in ops:
+        for b in ops:
+            for fn, want in ((_add_lazy, a + b), (_sub_lazy, a - b)):
+                r = fn(a, b)
+                assert r < 1 << 64 and r % P == want % P, (fn, a, b)
+    # a + b >= 2^65 - 2^32 + 1 carries twice; a - b in (-2^64, 2^32 - 1 -
+    # 2^64) borrows twice
+    assert _add_lazy((1 << 64) - 1, (1 << 64) - 1) % P == \
+        (2 * ((1 << 64) - 1)) % P
+    assert _sub_lazy(0, (1 << 64) - 1) % P == (-((1 << 64) - 1)) % P
+
+
+def test_model_lazy_ntt_row():
+    """A 2^6 radix-2 DIT network on the model's `mul`, `_add_lazy` and
+    `_sub_lazy` with values left unreduced, made canonical once at the end,
+    on rows of all p - 1, all 2^64 - 1 and edge values mixed with random
+    ones: equal to the transform evaluated point by point."""
+    lg = 6
+    n = 1 << lg
+    w = ref.primitive_root_of_unity(lg)
+    rev = [int(format(i, f"0{lg}b")[::-1], 2) for i in range(n)]
+    rows = [[P - 1] * n, [(1 << 64) - 1] * n,
+            [EDGE[i % len(EDGE)] if i % 2 else
+             int(RNG.integers(0, 1 << 64, dtype=np.uint64)) for i in range(n)]]
+    for row in rows:
+        x = [row[rev[k]] for k in range(n)]
+        for s in range(lg):
+            m = 1 << s
+            for k in range(n):
+                if k & m:
+                    continue
+                t = _mul(ref.exp(w, (k % m) << (lg - 1 - s)), x[k + m])
+                x[k], x[k + m] = _add_lazy(x[k], t), _sub_lazy(x[k], t)
+        got = [v - P if v >= P else v for v in x]
+        want = [sum(c * ref.exp(w, i * j) for i, c in enumerate(row)) % P
+                for j in range(n)]
+        assert got == want
 
 
 def test_model_mac_reduce160_and_mul_add_on_edge_operands():
