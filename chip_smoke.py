@@ -9,46 +9,66 @@ Phases, each of which raises on failure:
   2. fib100: build (seed 1234), prove and verify with the port under
      PoseidonGoldilocksConfig, and match every field of
      tests/golden/fib100_transcript.json, proof bytes included;
-  3. fib21-poseidon2: the same for fib(21) under Poseidon2GoldilocksConfig
-     against tests/golden/fib21_Poseidon2GoldilocksConfig_transcript.json;
-  4. dummy-2^14: the base proof of the reference's bench_recursion
+  3. fib100-wrap: the port builds the recursive verifier circuit of that
+     proof (tests/golden_common.py's build_fib100_wrap: seed 1234,
+     standard_recursion_config()), proves it cold and warm, verifies it and
+     rejects a tampered proof; the cold proof's bytes and transcript go to
+     chiprun_out/ (for the JAX package's verifier), and where
+     tests/golden/fib100_wrap_transcript.json exists every field of it must
+     be equal;
+  4. fib21-poseidon2: fib(21) under Poseidon2GoldilocksConfig against
+     tests/golden/fib21_Poseidon2GoldilocksConfig_transcript.json;
+  5. dummy-2^14: the base proof of the reference's bench_recursion
      (dummy_circuit(standard_recursion_config(), 14, 4), public input
-     0 = 42) under Poseidon: build, prove cold and warm, verify, and reject
-     a flipped public input; K1, K2 (both entries: the permutation and the
-     Merkle tree) and K3 must have been launched;
-  5. dummy-2^14-poseidon2: the same circuit under Poseidon2; K1, K6 (both
-     entries: the permutation and the Merkle tree) and K7 must have been
-     launched;
-  6. every kernel against its plain PyTorch version on the card, over full
-     outputs, at every shape phases 4 and 5 launched it at (tolerance:
+     0 = 42) under Poseidon: build, prove cold and three times warm, verify,
+     and reject a flipped public input and a flipped opening;
+  6. wrap-1 and wrap-2, the rest of bench_recursion's chain: the verifier
+     circuit of the dummy-2^14 proof, then the verifier circuit of wrap-1's
+     proof, each built, proved cold and three times warm, verified and
+     tamper-checked, with its degree, gates, build and prove seconds (the
+     warm proves' median and range), the shares of the host witness
+     fixpoint and of round 3 (the quotient), and the peak device memory
+     (phases 3, 5 and 7 log the same);
+  7. dummy-2^14-poseidon2: phase 5 under Poseidon2;
+  8. every kernel against its plain PyTorch version on the card, over full
+     outputs, at every shape phases 3 and 5-7 launched it at (tolerance:
      bit-exact), with its device time, its wrapper's time, the plain
      version's time, its bound and its device ms per warm prove;
-  7. edge batches: K2 and K6 (both entries each), K3 and K7 against their
+  9. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
+     rate 3, inverse [2, 2^20] with and without a shift and [1, 2^24],
+     against the plain version over full outputs, with device ms and
+     launches a call;
+  10. edge batches: K2 and K6 (both entries each), K3 and K7 against their
      plain versions on states and leaves made of 0, 1, 2^32 - 1, 2^32,
      p - 1 = 2^64 - 2^32 and the non-canonical p, p + 1 and 2^64 - 1, mixed
      with random ones, on states of all 2^64 - 1, and on leaves of p - 1;
-     K1's forward (2^14, with and without a shift, and 2^14 -> 2^17) and
-     inverse (2^14 and 2^17) on canonical rows of 0, 1, p - 1, 2^32 - 1 and
-     2^32 mixed with random values, and on rows of all p - 1 (bit-exact);
-  8. PoW stress: the full output of one 2^19-state wave of K2 and of K6
+     K1's forward (2^14, with and without a shift, 2^14 -> 2^17, 2^17 ->
+     2^20 and 2^20 -> 2^23) and inverse (2^14, 2^17 and 2^20) on canonical
+     rows of 0, 1, p - 1, 2^32 - 1 and 2^32 mixed with random values, and on
+     rows of all p - 1 (bit-exact; rows past 2^19 points pass values left
+     unreduced from one column round to the next);
+  11. PoW stress: the full output of one 2^19-state wave of K2 and of K6
      against the host C permutation, then waves from the fib100 and
      fib21-poseidon2 transcript states through both hashers and from random
      sponge states (48 through K2, 24 through K6), each witness checked on
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
-The kernel counts are set to 0 just before phases 4 and 5 and read just
-after each. The line before the last is the kernel table as JSON; the last
+The kernel counts are set to 0 just before each of phases 3 and 5-7 and
+read just after it; a kernel of a phase's path that it never launched fails
+the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
 imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -61,8 +81,15 @@ import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
 P2 = "Poseidon2GoldilocksConfig"
+# the kernels of a path under each hasher config
+POSEIDON_PATH = ("ntt", "poseidon_permute", "poseidon_merkle_tree",
+                 "poseidon_hash_leaves")
+POSEIDON2_PATH = ("ntt", "poseidon2_permute", "poseidon2_merkle_tree",
+                  "poseidon2_hash_leaves")
 
+P = (1 << 64) - (1 << 32) + 1      # the Goldilocks prime
 # H100 SXM: HBM bytes/s (NVIDIA data sheet) and the 32-bit integer
 # multiply-add rate of one SM per clock (64 INT32 lanes)
 HBM_BYTES_PER_S = 3.35e12
@@ -79,6 +106,8 @@ FIELD_MULS = {"poseidon_permute": (8 * 12 + 22) * 4,
 # a 64 x 64 -> 128-bit product takes at least four 32-bit partial products;
 # the Goldilocks reduction takes shifts and adds only
 MIN_IMAD_PER_FIELD_MUL = 4
+# warm proves of each main-path phase, after its cold one
+WARM_PROVES = 3
 
 
 def log(msg: str) -> None:
@@ -119,7 +148,8 @@ def _fib(steps: int, gc, device):
     return data, proof
 
 
-def _golden(name: str, data, proof, path: str) -> None:
+def _transcript(data, proof) -> dict:
+    """The 13 fields of a golden transcript file."""
     from plonky2_tpu_torch.plonk.get_challenges import get_challenges
     from plonky2_tpu_torch.utils.serialization import (
         serialize_proof_with_pis,
@@ -130,7 +160,7 @@ def _golden(name: str, data, proof, path: str) -> None:
     ch = get_challenges(proof, pi_hash, data.verifier_only.circuit_digest,
                         common)
     fc = ch.fri_challenges
-    got = {
+    return {
         "circuit_digest": list(data.verifier_only.circuit_digest),
         "public_inputs": list(proof.public_inputs),
         "pi_hash": list(pi_hash),
@@ -143,6 +173,10 @@ def _golden(name: str, data, proof, path: str) -> None:
         "pow_witness": proof.proof.opening_proof.pow_witness,
         "proof_hex": serialize_proof_with_pis(proof, common).hex(),
     }
+
+
+def _golden(name: str, data, proof, path: str) -> None:
+    got = _transcript(data, proof)
     with open(path) as f:
         want = json.load(f)
     bad = [k for k in want if got[k] != want[k]]
@@ -179,6 +213,7 @@ def fib100(device):
         prover._pow_wave = wave
     _golden("fib100", data, proof,
             os.path.join(GOLDEN_DIR, "fib100_transcript.json"))
+    return data, proof
 
 
 @phase("fib21-poseidon2")
@@ -194,27 +229,55 @@ def fib21_poseidon2(device):
             os.path.join(GOLDEN_DIR, f"fib21_{P2}_transcript.json"))
 
 
-def _dummy(name: str, gc, device, kernels: tuple):
-    """Build, prove cold and warm, verify and tamper-check the 2^14 dummy
-    circuit under `gc`; the counts are set to 0 just before and read just
-    after. Returns {kernel: launches}, {kernel: {shape: launches}} and the
-    warm prove's {kernel: {shape: launches}}."""
+def _tampered(proof):
+    """Copies of a proof with one value flipped: the first opening of the
+    wires, and the first public input where there is one."""
+    bad = copy.deepcopy(proof)
+    w = bad.proof.openings.wires
+    w[0] = ((w[0][0] + 1) % P, w[0][1])
+    out = [("flipped opening", bad)]
+    if proof.public_inputs:
+        bad = copy.deepcopy(proof)
+        bad.public_inputs[0] = (bad.public_inputs[0] + 1) % P
+        out.append(("flipped public input", bad))
+    return out
+
+
+def _drive(name: str, device, build, kernels: tuple):
+    """Build, prove cold and WARM_PROVES times warm, verify and
+    tamper-check one circuit; the counts are set to 0 just before and read
+    just after. `build()` returns the circuit's data and a function that
+    makes the witness of a prove. Returns ((launches, shapes, warm shapes),
+    data, cold proof): {kernel: launches}, {kernel: {shape: launches}} and
+    the last warm prove's {kernel: {shape: launches}}."""
     from plonky2_tpu_torch import backend
-    from plonky2_tpu_torch.plonk.config import CircuitConfig
-    from plonky2_tpu_torch.recursion.dummy import dummy_circuit, dummy_proof
 
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     backend.reset_counts()
     t0 = time.perf_counter()
-    data, pis = dummy_circuit(CircuitConfig.standard_recursion_config(), 14,
-                              4, device=device, gc=gc)
+    data, inputs = build()
+    torch.cuda.synchronize(device)
     t_build = time.perf_counter() - t0
-    times = []
-    for _ in range(2):
+
+    def timer(seconds: dict):
+        """The prover's step hook: the seconds of the host witness fixpoint
+        and of round 3 (the quotient: every gate constraint over the LDE
+        grid), each ending in a synchronize."""
+        @contextlib.contextmanager
+        def step(what):
+            t = time.perf_counter()
+            yield
+            torch.cuda.synchronize(device)
+            seconds[what] = time.perf_counter() - t
+        return step
+    times, proofs, step_s = [], [], []
+    for _ in range(1 + WARM_PROVES):
         before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+        pw = inputs()
+        step_s.append({})
         t0 = time.perf_counter()
-        proof = dummy_proof(data, pis, {0: 42})
+        proofs.append(data.prove(pw, timer(step_s[-1])))
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
     warm = {k.name: {s: n - before[k.name].get(s, 0)
@@ -222,51 +285,119 @@ def _dummy(name: str, gc, device, kernels: tuple):
                      if n > before[k.name].get(s, 0)}
             for k in backend.KERNELS.values()}
     t0 = time.perf_counter()
-    data.verify(proof)
-    t_verify = time.perf_counter() - t0
+    for proof in proofs:
+        data.verify(proof)
+    t_verify = (time.perf_counter() - t0) / len(proofs)
     launches = {k.name: k.launches for k in backend.KERNELS.values()}
     shapes = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
     peak = torch.cuda.max_memory_allocated(device)
 
-    tampered = copy.deepcopy(proof)
-    tampered.public_inputs[0] = 43
-    try:
-        data.verify(tampered)
-    except AssertionError as e:
-        log(f"{name}: flipped public input rejected ({e})")
-    else:
-        raise AssertionError("a proof with a flipped public input verified")
+    for what, bad in _tampered(proofs[0]):
+        try:
+            data.verify(bad)
+        except AssertionError as e:
+            log(f"{name}: {what} rejected ({e})")
+        else:
+            raise AssertionError(f"{name}: a proof with a {what} verified")
 
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched by the main "
                              f"path: {missing}")
-    log(f"{name}: {data.common.gc.name}, degree 2^{data.common.degree_bits},"
-        f" FRI arities {data.common.fri_params.reduction_arity_bits}, build "
-        f"{t_build:.3f} s, prove cold {times[0]:.3f} s, warm {times[1]:.3f} "
-        f"s, verify {t_verify:.3f} s, peak allocated "
-        f"{peak / 2**20:.1f} MiB")
+    common = data.common
+    cold = "; ".join(f"{what} {s:.3f} s, {s / times[0]:.1%}"
+                     for what, s in step_s[0].items())
+
+    def spread(values, fmt):
+        return (f"median {fmt(statistics.median(values))} "
+                f"({fmt(min(values))}-{fmt(max(values))})")
+    shares = {what: [s[what] / t for s, t in zip(step_s[1:], times[1:])]
+              for what in step_s[0]}
+    warm_s = "; ".join(f"{what} {spread(v, '{:.1%}'.format)}"
+                       for what, v in shares.items())
+    log(f"{name}: {common.gc.name}, degree 2^{common.degree_bits}, FRI "
+        f"arities {common.fri_params.reduction_arity_bits}, build "
+        f"{t_build:.3f} s, prove cold {times[0]:.3f} s ({cold}), warm x"
+        f"{WARM_PROVES} {spread(times[1:], '{:.3f} s'.format)} ({warm_s}), "
+        f"verify {t_verify:.3f} s, peak allocated {peak / 2**20:.1f} MiB")
+    log(f"{name}: warm proves {[round(t, 3) for t in times[1:]]} s, steps "
+        f"{[{k: round(v, 3) for k, v in s.items()} for s in step_s[1:]]}")
+    log(f"{name}: gates {[g.id() for g in common.gates]}")
     log(f"{name}: launches {launches}")
     for k, prefix in (("K2", "poseidon"), ("K6", "poseidon2")):
         log(f"{name}: {k} launches (permute + merkle_tree) "
             f"{launches[prefix + '_permute'] + launches[prefix + '_merkle_tree']}")
-    return launches, shapes, warm
+    return (launches, shapes, warm), data, proofs[0]
+
+
+def _dummy_build(gc, device):
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.recursion.dummy import dummy_circuit, dummy_witness
+
+    def build():
+        data, pis = dummy_circuit(CircuitConfig.standard_recursion_config(),
+                                  14, 4, device=device, gc=gc)
+        return data, lambda: dummy_witness(pis, {0: 42})
+    return build
+
+
+def _wrap_build(inner, proof, device):
+    """The recursive verifier circuit of `proof` (recursion/verifier.py
+    wrap_circuit: seed 1234, standard_recursion_config())."""
+    from plonky2_tpu_torch.recursion.verifier import wrap_circuit
+
+    def build():
+        builder, witness = wrap_circuit(inner)
+        return builder.build(device=device), lambda: witness(proof)
+    return build
+
+
+@phase("fib100-wrap")
+def fib100_wrap(device, fib):
+    from plonky2_tpu_torch.utils.serialization import (
+        serialize_proof_with_pis,
+    )
+    run, data, proof = _drive("fib100-wrap", device,
+                              _wrap_build(*fib, device), POSEIDON_PATH)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "fib100_wrap_proof.bin"), "wb") as f:
+        f.write(serialize_proof_with_pis(proof, data.common))
+    with open(os.path.join(OUT_DIR, "fib100_wrap_transcript.json"), "w") as f:
+        json.dump(_transcript(data, proof), f, indent=1)
+    golden = os.path.join(GOLDEN_DIR, "fib100_wrap_transcript.json")
+    if os.path.exists(golden):
+        _golden("fib100-wrap", data, proof, golden)
+    else:
+        log("fib100-wrap: no golden file; proof bytes and transcript "
+            "written to chiprun_out/")
+    return run
 
 
 @phase("dummy-2^14")
 def dummy_2_14(device):
     from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
-    return _dummy("dummy-2^14", PoseidonGoldilocksConfig, device,
-                  ("ntt", "poseidon_permute", "poseidon_merkle_tree",
-                   "poseidon_hash_leaves"))
+    return _drive("dummy-2^14", device,
+                  _dummy_build(PoseidonGoldilocksConfig, device),
+                  POSEIDON_PATH)
+
+
+@phase("wrap-1")
+def wrap_1(device, inner, proof):
+    return _drive("wrap-1", device, _wrap_build(inner, proof, device),
+                  POSEIDON_PATH)
+
+
+@phase("wrap-2")
+def wrap_2(device, inner, proof):
+    return _drive("wrap-2", device, _wrap_build(inner, proof, device),
+                  POSEIDON_PATH)
 
 
 @phase("dummy-2^14-poseidon2")
 def dummy_2_14_poseidon2(device):
     from plonky2_tpu_torch.hash.hashers import CONFIGS
-    return _dummy("dummy-2^14-poseidon2", CONFIGS[P2], device,
-                  ("ntt", "poseidon2_permute", "poseidon2_merkle_tree",
-                   "poseidon2_hash_leaves"))
+    return _drive("dummy-2^14-poseidon2", device,
+                  _dummy_build(CONFIGS[P2], device), POSEIDON2_PATH)[0]
 
 
 def _wrapper_ms(fn, reps: int) -> float:
@@ -282,6 +413,16 @@ def _wrapper_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_ms(fn) -> tuple:
+    """(output, host ms) of one call that ends in a synchronize: the plain
+    versions, whose one call is both compared and timed."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _device_ms(fn, reps: int) -> float:
@@ -328,15 +469,16 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
     Adds, reductions and small-constant products are not counted: a
     floor."""
     if name == "ntt":
-        # B n read, B N written, the stage-major twiddle table (N) and the
-        # shift or scale table (n) read once; one general multiply per
-        # butterfly of the stages not skipped, and one per element for the
-        # shift (forward) or the scale (inverse)
+        # B n read and B N written: the twiddles and the shift or scale
+        # powers can be made on chip, so the kernel's tables of them are not
+        # counted; one general multiply per butterfly of the stages not
+        # skipped, and one per element for the shift (forward) or the scale
+        # (inverse)
         batch, lg_n, rate, direction, shift = shape
         n, N = 1 << lg_n, 1 << (lg_n + rate)
-        table = n if shift is not None or direction == "inverse" else 0
-        nbytes = 8 * (batch * n + batch * N + N + table)
-        muls = batch * (lg_n * (N // 2) + (n if table else 0))
+        nbytes = 8 * (batch * n + batch * N)
+        scaled = shift is not None or direction == "inverse"
+        muls = batch * (lg_n * (N // 2) + (n if scaled else 0))
         imads = MIN_IMAD_PER_FIELD_MUL * muls
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
@@ -401,7 +543,8 @@ def _cases(name, shape, rand):
 
 @phase("kernels vs plain")
 def kernels_vs_plain(device, runs, clock_mhz):
-    """runs: {phase: (launches, shapes, warm shapes)} of the dummy phases."""
+    """runs: {phase: (launches, shapes, warm shapes)} of the main path's
+    phases."""
     from plonky2_tpu_torch import backend
     from plonky2_tpu_torch.field import goldilocks as gl
 
@@ -423,7 +566,9 @@ def kernels_vs_plain(device, runs, clock_mhz):
         worst, largest, per_shape, dev_ms = 0, None, [], {}
         for shape in held:
             run, plain, size = _cases(kern.name, shape, rand)
-            err = _max_abs_err(run(), plain())
+            want, plain_ms = _timed_ms(plain)
+            err = _max_abs_err(run(), want)
+            del want
             worst = max(worst, err)
             before = kern.launches
             run()
@@ -434,7 +579,6 @@ def kernels_vs_plain(device, runs, clock_mhz):
             small = size < 1 << 16
             ms = _device_ms(run, 100 if small else 10)
             wrap_ms = _wrapper_ms(run, 100 if small else 10)
-            plain_ms = _wrapper_ms(plain, 1)
             bound_ms, bound_by = _bound(kern.name, shape, clock_mhz)
             dev_ms[shape] = (ms, per_call)
             log(f"{kern.name} {shape}: max_abs_err {err}, device {ms:.5f} ms"
@@ -486,7 +630,52 @@ def kernels_vs_plain(device, runs, clock_mhz):
     return table
 
 
-P = (1 << 64) - (1 << 32) + 1
+# K1's rows past the 2^19 points of one column round: (batch, lg_n, rate,
+# direction, shift), as the prover's calls record them
+K1_LARGE = [(1, 17, 3, "forward", 7), (2, 20, 0, "inverse", None),
+            (2, 20, 0, "inverse", 7), (1, 21, 3, "forward", 7),
+            (1, 24, 0, "inverse", None)]
+
+
+@phase("K1 past 2^19")
+def k1_past_2_19(device, table, clock_mhz):
+    """K1 on rows of 2^20 and 2^24 points (two column rounds) against its
+    plain version over full outputs; raises K1's max_abs_err in `table`
+    and records each call's device ms and launches there."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+
+    rng = np.random.default_rng(19)
+    entry = next(e for e in table if e["name"] == "ntt")
+    entry["past_2_19"] = []
+    kern = backend.KERNELS["ntt"]
+    for shape in K1_LARGE:
+        x = gl.from_u64(rng.integers(0, P, size=(shape[0], 1 << shape[1]),
+                                     dtype=np.uint64), device)
+        run, plain, _ = _cases("ntt", shape, lambda *_: x)
+        want, plain_ms = _timed_ms(plain)
+        err = _max_abs_err(run(), want)
+        del want
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if err:
+            raise AssertionError(f"ntt {shape} disagrees with its plain "
+                                 f"version ({err})")
+        before = kern.launches
+        run()
+        per_call = kern.launches - before
+        ms = _device_ms(run, 5)
+        bound_ms, bound_by = _bound("ntt", shape, clock_mhz)
+        log(f"ntt {shape}: max_abs_err 0, device {ms:.5f} ms ({per_call} "
+            f"launches a call), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        entry["past_2_19"].append({"shape": list(shape),
+                                   "launches_per_call": per_call, "ms": ms,
+                                   "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms})
+        del x
+        torch.cuda.empty_cache()
+
+
 # p - 1 = 2^64 - 2^32 is the largest canonical value; p, p + 1 and
 # 2^64 - 1 are not canonical
 EDGE = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, P, P + 1, (1 << 64) - 1]
@@ -531,8 +720,7 @@ def edge_batches(device, table):
             functools.partial(mod.merkle_layers_plain, cap_height=4),
             [batch(1 << 13, 4), full(1 << 9, 4), ones(1 << 9, 4)])
     # K1: canonical edge values (0, 1, p - 1, 2^32 - 1, 2^32) mixed with
-    # random ones, and rows of all p - 1; forward at 2^14 (rate 0, with and
-    # without a shift) and 2^14 -> 2^17, inverse at 2^14 and 2^17
+    # random ones, and rows of all p - 1, on rows of 2^14, 2^17 and 2^20
     canon = np.asarray([0, 1, P - 1, (1 << 32) - 1, 1 << 32], dtype=np.uint64)
 
     def canonical_batch(*shape):
@@ -544,10 +732,16 @@ def edge_batches(device, table):
     def k1(forward, inverse):
         """Rows of 2^14: forward at rate 0 without and with a shift, the
         LDE to 2^17, inverse without and with a shift; rows of 2^17: the
-        coset inverse."""
+        coset inverse and the LDE to 2^20; rows of 2^20: the LDE to 2^23,
+        the inverse and the coset inverse (the calls past 2^19 points run
+        two column rounds)."""
         def calls(x):
             if x.shape[-1] == 1 << 17:
-                return [inverse(x, 7).reshape(-1)]
+                return [inverse(x, 7).reshape(-1),
+                        forward(x, 3, 7).reshape(-1)]
+            if x.shape[-1] == 1 << 20:
+                return [y.reshape(-1) for y in (
+                    forward(x, 3, 7), inverse(x, None), inverse(x, 7))]
             return [y.reshape(-1) for y in (
                 forward(x, 0, None), forward(x, 0, 7), forward(x, 3, 7),
                 inverse(x, None), inverse(x, 7))]
@@ -556,7 +750,8 @@ def edge_batches(device, table):
     checks["ntt"] = (
         k1(ntt.forward, ntt.inverse), k1(ntt.forward_plain, ntt.inverse_plain),
         [canonical_batch(135, 1 << 14), full(4, 1 << 14),
-         canonical_batch(2, 1 << 17), full(2, 1 << 17)])
+         canonical_batch(2, 1 << 17), full(2, 1 << 17),
+         canonical_batch(1, 1 << 20), full(1, 1 << 20)])
     by_name = {e["name"]: e for e in table}
     for name, (run, plain, cases) in checks.items():
         for x in cases:
@@ -650,11 +845,14 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(line.strip())
 
-    fib100(device)
+    runs = {"fib100-wrap": fib100_wrap(device, fib100(device))}
     fib21_poseidon2(device)
-    runs = {"dummy-2^14": dummy_2_14(device),
-            "dummy-2^14-poseidon2": dummy_2_14_poseidon2(device)}
+    runs["dummy-2^14"], dummy, dummy_proof = dummy_2_14(device)
+    runs["wrap-1"], wrap, wrap_proof = wrap_1(device, dummy, dummy_proof)
+    runs["wrap-2"] = wrap_2(device, wrap, wrap_proof)[0]
+    runs["dummy-2^14-poseidon2"] = dummy_2_14_poseidon2(device)
     table = kernels_vs_plain(device, runs, clock)
+    k1_past_2_19(device, table, clock)
     edge_batches(device, table)
     pow_stress(device)
     assert sys.modules["jax"] is None and sys.modules["plonky2_tpu"] is None

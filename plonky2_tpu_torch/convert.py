@@ -22,14 +22,30 @@ import numpy as np
 from .field import goldilocks as gl
 from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
+from .gadgets.extension import _ExtInverseGenerator
+from .gadgets.misc import _BaseSumGenerator, _EqualityGenerator
 from .gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
     _ArithmeticOpGenerator,
+)
+from .gates.coset_interpolation_gate import (
+    CosetInterpolationGate, _InterpolationGenerator,
+)
+from .gates.extension_gates import (
+    ArithmeticExtensionGate, MulExtensionGate, ReducingExtensionGate,
+    ReducingGate, _ArithmeticExtOpGenerator, _MulExtOpGenerator,
+    _ReducingExtGenerator, _ReducingGenerator,
+)
+from .gates.misc_gates import (
+    BaseSplitGenerator, BaseSumGate, ExponentiationGate, RandomAccessGate,
+    _ExponentiationGenerator, _RandomAccessGenerator,
 )
 from .gates.poseidon_gate import PoseidonGate, PoseidonGenerator
 from .hash.hashers import CONFIGS
 from .hash.merkle import MerkleTree
 from .iop.generator import ConstantGenerator, RandomValueGenerator
+from .iop.target import ExtTarget
+from .plonk.circuit_builder import _InverseGenerator
 from .plonk.circuit_data import (
     CircuitData, CommonCircuitData, ProverOnlyData, SelectorsInfo,
     VerifierOnlyData,
@@ -38,19 +54,41 @@ from .plonk.config import CircuitConfig
 from .utils.bits import log2_strict
 
 
+# gate name -> constructor from the integer fields of its id, in order
+_GATES = {
+    "ArithmeticGate": ArithmeticGate,
+    "ConstantGate": ConstantGate,
+    "ArithmeticExtensionGate": ArithmeticExtensionGate,
+    "MulExtensionGate": MulExtensionGate,
+    "ReducingExtensionGate": ReducingExtensionGate,
+    "ReducingGate": ReducingGate,
+    "BaseSumGate": BaseSumGate,                 # num_limbs, Base
+    "ExponentiationGate": ExponentiationGate,
+    "RandomAccessGate": RandomAccessGate,       # bits, copies, extra consts
+    "CosetInterpolationGate": CosetInterpolationGate.with_degree,
+}
+
+
 def gate_from_id(gate_id: str):
     """The port's gate for a gate id of the JAX package."""
     fixed = {g.id(): g for g in (NoopGate(), PublicInputGate(),
                                  PoseidonGate())}
     if gate_id in fixed:
         return fixed[gate_id]
-    m = re.fullmatch(r"ArithmeticGate \{ num_ops: (\d+) \}", gate_id)
-    if m:
-        return ArithmeticGate(int(m.group(1)))
-    m = re.fullmatch(r"ConstantGate \{ num_consts: (\d+) \}", gate_id)
-    if m:
-        return ConstantGate(int(m.group(1)))
-    raise NotImplementedError(f"gate not ported: {gate_id}")
+    name = gate_id.split(" ", 1)[0]
+    if name not in _GATES:
+        raise NotImplementedError(f"gate not ported: {gate_id}")
+    gate = _GATES[name](*(int(v) for v in
+                          re.findall(r"\b\w+: (\d+)", gate_id)))
+    if gate.id() != gate_id:
+        raise NotImplementedError(f"gate not ported: {gate_id}")
+    return gate
+
+
+def _target(t):
+    """A target of the JAX package: its tuple, an ExtTarget stays one."""
+    return ExtTarget(*map(tuple, t)) if type(t).__name__ == "ExtTarget" \
+        else tuple(t)
 
 
 def generator_from(g):
@@ -65,6 +103,32 @@ def generator_from(g):
         return _ArithmeticOpGenerator(g.row, g.i, int(g.c0), int(g.c1))
     if kind == "PoseidonGenerator":
         return PoseidonGenerator(g.row)
+    if kind == "_ArithmeticExtOpGenerator":
+        return _ArithmeticExtOpGenerator(g.row, g.i, int(g.c0), int(g.c1))
+    if kind == "_MulExtOpGenerator":
+        return _MulExtOpGenerator(g.row, g.i, int(g.c0))
+    if kind == "BaseSplitGenerator":
+        return BaseSplitGenerator(g.row, g.num_limbs, g.base)
+    if kind == "_RandomAccessGenerator":
+        return _RandomAccessGenerator(g.row, gate_from_id(g.gate.id()),
+                                      g.copy)
+    by_gate = {"_ReducingExtGenerator": _ReducingExtGenerator,
+               "_ReducingGenerator": _ReducingGenerator,
+               "_ExponentiationGenerator": _ExponentiationGenerator,
+               "_InterpolationGenerator": _InterpolationGenerator}
+    if kind in by_gate:
+        return by_gate[kind](g.row, gate_from_id(g.gate.id()))
+    by_targets = {"_InverseGenerator": (_InverseGenerator, ("x", "x_inv")),
+                  "_ExtInverseGenerator": (_ExtInverseGenerator,
+                                           ("x", "x_inv")),
+                  "_EqualityGenerator": (_EqualityGenerator,
+                                         ("x", "y", "equal", "inv"))}
+    if kind in by_targets:
+        cls, fields = by_targets[kind]
+        return cls(*(_target(getattr(g, f)) for f in fields))
+    if kind == "_BaseSumGenerator":
+        return _BaseSumGenerator([tuple(b) for b in g.bits],
+                                 tuple(g.sum_target))
     raise NotImplementedError(f"generator not ported: {kind}")
 
 

@@ -31,6 +31,13 @@
 //   stores are contiguous. The tile is 2^kTileLg, shrunk for small batches
 //   until pass A has kMinBlocks blocks: a block of 16 warps runs about one
 //   butterfly a clock, so a call of few rows must spread over the SMs.
+// - A row above 2^(kTileLg + kMaxColLg) (2^19) has more stages above the
+//   tile than a column holds in registers: pass B then runs as two column
+//   rounds (three launches), the first over the lower c1 = c / 2 of those
+//   c stages at stride 2^lg_T, storing unreduced values, the second over
+//   the rest at stride 2^(lg_T + c1). The first round is the smaller one:
+//   at 2^24, 6 stages unreduced take 255 registers and spill, 5 do not.
+//   Rows up to 2^kMaxLg (2^24) are taken.
 // - Stages run three at a time in registers (radix 8), so shared memory is
 //   read and written once per three stages.
 // - Twiddles come from one table a direction and size, stage-major
@@ -59,6 +66,7 @@ constexpr int kMinTileLg = 9;
 constexpr int kMinBlocks = 512;
 constexpr int kShrinkColLg = 4;
 constexpr int kMaxColLg = 6;        // pass B's columns: up to 2^6 elements
+constexpr int kMaxLg = 24;          // the longest row: 2^24 elements
 constexpr int kRadixLg = 3;         // stages a round in registers
 constexpr int kThreads = 512;
 constexpr int kColThreads = 128;
@@ -199,37 +207,64 @@ __global__ void __launch_bounds__(kThreads, 2) ntt_tiles(Args a) {
     out[k] = s[k];
 }
 
-// pass B: stages [lg_T, lg_N) on column u of a row, x[u + q 2^lg_T]
-template <int C_LG>
-__global__ void __launch_bounds__(kColThreads) ntt_columns(Args a) {
-  const int lg_T = a.lg_N - C_LG;
+// pass B: stages [s0, s0 + C_LG) on the columns x[base + q 2^s0], base =
+// the thread's index with bits s0 .. s0 + C_LG - 1 spread clear; the last
+// round (s0 + C_LG = lg_N) stores canonical values, an earlier one leaves
+// them unreduced
+template <int C_LG, bool kLast>
+__global__ void __launch_bounds__(kColThreads) ntt_columns(Args a, int s0) {
+  const int lg_cols = a.lg_N - C_LG;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.batch << lg_T) return;
-  const long long row = idx >> lg_T;
-  const uint32_t u = idx & ((1u << lg_T) - 1);
-  uint64_t* x = a.out + (row << a.lg_N) + u;
+  if (idx >= a.batch << lg_cols) return;
+  const long long row = idx >> lg_cols;
+  const uint32_t r = idx & ((1u << lg_cols) - 1);
+  const uint32_t u = r & ((1u << s0) - 1);
+  const uint32_t base = u | ((r >> s0) << (s0 + C_LG));
+  uint64_t* x = a.out + (row << a.lg_N) + base;
   uint64_t v[1 << C_LG];
 #pragma unroll
-  for (int q = 0; q < (1 << C_LG); ++q) v[q] = x[(size_t)q << lg_T];
-  butterflies<C_LG>(v, a.tw, lg_T, u);
+  for (int q = 0; q < (1 << C_LG); ++q) v[q] = x[(size_t)q << s0];
+  butterflies<C_LG>(v, a.tw, s0, u);
 #pragma unroll
   for (int q = 0; q < (1 << C_LG); ++q)
-    x[(size_t)q << lg_T] = finish(a, v[q], u + (q << lg_T));
+    x[(size_t)q << s0] = kLast ? finish(a, v[q], base + (q << s0)) : v[q];
 }
 
 
-template <int C_LG>
-void launch_columns(const Args& a, cudaStream_t st) {
+template <int C_LG, bool kLast>
+void launch_columns(const Args& a, int s0, cudaStream_t st) {
   const long long threads = a.batch << (a.lg_N - C_LG);
-  ntt_columns<C_LG><<<(unsigned)((threads + kColThreads - 1) / kColThreads),
-                      kColThreads, 0, st>>>(a);
+  ntt_columns<C_LG, kLast>
+      <<<(unsigned)((threads + kColThreads - 1) / kColThreads), kColThreads,
+         0, st>>>(a, s0);
+}
+
+// the last column round: c stages from s0 = lg_N - c
+void last_columns(const Args& a, int c, int s0, cudaStream_t st) {
+  switch (c) {
+    case 1: launch_columns<1, true>(a, s0, st); break;
+    case 2: launch_columns<2, true>(a, s0, st); break;
+    case 3: launch_columns<3, true>(a, s0, st); break;
+    case 4: launch_columns<4, true>(a, s0, st); break;
+    case 5: launch_columns<5, true>(a, s0, st); break;
+    default: launch_columns<6, true>(a, s0, st); break;
+  }
+}
+
+// the first of two column rounds: 3 to 5 stages from the tile
+void first_columns(const Args& a, int c, int s0, cudaStream_t st) {
+  switch (c) {
+    case 3: launch_columns<3, false>(a, s0, st); break;
+    case 4: launch_columns<4, false>(a, s0, st); break;
+    default: launch_columns<5, false>(a, s0, st); break;
+  }
 }
 
 // Runs the transform of `a`; writes the number of kernels launched.
 int transform(Args a, void* stream, int* launches) {
   *launches = 0;
   if (a.batch <= 0) return 0;
-  if (a.lg_N < 0 || a.rate < 0 || a.rate > a.lg_N)
+  if (a.lg_N < 0 || a.lg_N > kMaxLg || a.rate < 0 || a.rate > a.lg_N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.lg_N <= kRowLg) {
@@ -248,7 +283,9 @@ int transform(Args a, void* stream, int* launches) {
   if (a.rate > lowest) lowest = a.rate;
   while (lg_T > lowest && (a.batch << (a.lg_N - lg_T)) < kMinBlocks) --lg_T;
   const int c = a.lg_N - lg_T;
-  if (c > kMaxColLg || a.rate > lg_T) return (int)cudaErrorInvalidValue;
+  // kMaxLg - kTileLg = 11 stages above the tile at most: rounds of 5 + 6
+  if (c > 2 * kMaxColLg - 1 || a.rate > lg_T)
+    return (int)cudaErrorInvalidValue;
   a.lg_T = lg_T;
   static const cudaError_t set = cudaFuncSetAttribute(
       ntt_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 << kTileLg);
@@ -258,14 +295,18 @@ int transform(Args a, void* stream, int* launches) {
   *launches = 1;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  switch (c) {
-    case 1: launch_columns<1>(a, st); break;
-    case 2: launch_columns<2>(a, st); break;
-    case 3: launch_columns<3>(a, st); break;
-    case 4: launch_columns<4>(a, st); break;
-    case 5: launch_columns<5>(a, st); break;
-    default: launch_columns<6>(a, st); break;
+  if (c > kMaxColLg) {
+    // two column rounds, the smaller first
+    const int c1 = c / 2;
+    first_columns(a, c1, lg_T, st);
+    *launches = 2;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    last_columns(a, c - c1, lg_T + c1, st);
+    *launches = 3;
+    return (int)cudaGetLastError();
   }
+  last_columns(a, c, lg_T, st);
   *launches = 2;
   return (int)cudaGetLastError();
 }

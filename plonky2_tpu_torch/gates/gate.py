@@ -6,7 +6,9 @@ algebra:
 - `ExtAlgebra`: quadratic-extension python-int scalars, the verifier's
   evaluation at zeta;
 - `GFAlgebra`: int64 field tensors over the whole LDE grid, the prover's
-  quotient pass.
+  quotient pass;
+- `TargetAlgebra` (`target_algebra.py`): extension targets, the recursive
+  verifier's constraints inside a circuit.
 Gates whose generic form is slow on tensors override `eval_unfiltered_rows`.
 """
 

@@ -44,6 +44,9 @@ class PartitionWitness:
     def rep_index(self, t) -> int:
         return self.rep_list[target_index(t, self.num_wires, self.degree)]
 
+    def is_set(self, t) -> bool:
+        return self.values[self.rep_index(t)] is not None
+
     def get(self, t) -> int:
         v = self.values[self.rep_index(t)]
         assert v is not None, f"target {t} not set"

@@ -31,6 +31,9 @@ from ..utils.bits import (
 )
 
 MULTIPLICATIVE_GROUP_GENERATOR = ref.MULTIPLICATIVE_GROUP_GENERATOR
+# K1's longest row, 2^MAX_LG points (`kMaxLg` of csrc/ntt.cu): the
+# reference's NTT range, 2^12 to 2^24
+MAX_LG = 24
 
 
 @lru_cache(maxsize=None)
@@ -112,6 +115,12 @@ def inverse_plain(values: torch.Tensor, shift: int | None) -> torch.Tensor:
     return out
 
 
+def _check_size(entry: str, lg_N: int) -> None:
+    if lg_N > MAX_LG:
+        raise ValueError(f"{entry}: K1 takes rows of at most 2^{MAX_LG} "
+                         f"points, got 2^{lg_N}")
+
+
 def _launch(entry: str, shape: tuple, *args) -> None:
     launches = ctypes.c_int(0)
     rc = getattr(backend.lib(), entry)(*args, ctypes.byref(launches))
@@ -126,6 +135,7 @@ def _forward_rows(x: torch.Tensor, stride: int, batch: int, lead: tuple,
     x; the output [*lead, n 2^rate_bits]."""
     n = x.shape[-1]
     lg_n = log2_strict(n)
+    _check_size("ntt_forward", lg_n + rate_bits)
     out = torch.empty(lead + (n << rate_bits,), dtype=torch.int64,
                       device=x.device)
     if batch:
@@ -160,6 +170,7 @@ def inverse(values: torch.Tensor, shift: int | None = None) -> torch.Tensor:
     backend.require_cuda_int64(values, "ntt_inverse")
     n = values.shape[-1]
     lg_n = log2_strict(n)
+    _check_size("ntt_inverse", lg_n)
     batch = values.numel() // n
     out = torch.empty(values.shape, dtype=torch.int64, device=values.device)
     if batch:

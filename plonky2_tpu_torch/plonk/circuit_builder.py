@@ -1,11 +1,13 @@
 """CircuitBuilder — the builder core (reference: plonk/circuit_builder.rs —
 add_gate:445, connect:516, find_slot:786, blind_and_pad:884,
 build:1045-1265) for non-ZK circuits: virtual targets, public inputs,
-connect, constants, arithmetic, the Poseidon public-input hash gadget,
-padding and `build()`.
+connect, constants, arithmetic, the hashing gadgets, the extension and misc
+gadget mixins the recursive verifier uses, padding and `build()`.
 
-`build(device=...)` commits the constants and sigmas on that device, the
-GPU unless the caller asks for another; the circuit's proofs run there.
+`build()` runs in two steps: `build_host()` lays out the rows, constants,
+selectors and sigmas, the representative map and the generators on the
+host; `commit()` commits the constants and sigmas on a device, the GPU
+unless the caller asks for another, and the circuit's proofs run there.
 `build(gc=...)` picks the hasher config of the commitments and the
 transcript (`hash/hashers.py` CONFIGS). The builder's numpy generator
 (`seed`) fills the unused public-input-gate wires at prove time, in the
@@ -14,11 +16,15 @@ reference's order.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..field import goldilocks as gl
 from ..field import reference as ref
 from ..fri.oracle import PolynomialBatch
+from ..gadgets.extension import ExtensionGadgets
+from ..gadgets.misc import MiscGadgets
 from ..gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
 )
@@ -36,7 +42,20 @@ from .config import CircuitConfig
 from .permutation import Forest
 
 
-class CircuitBuilder:
+@dataclasses.dataclass
+class HostCircuit:
+    """A circuit laid out on the host, before its commitment: what
+    `generate_partial_witness` needs (generators, representative map) and
+    the values the commitment takes."""
+    common: CommonCircuitData
+    constants_sigmas: np.ndarray    # uint64 [num_constants + routed, degree]
+    subgroup: np.ndarray            # uint64 [degree]
+    representative_map: np.ndarray
+    generators: list
+    public_inputs: list
+
+
+class CircuitBuilder(ExtensionGadgets, MiscGadgets):
     def __init__(self, config: CircuitConfig | None = None,
                  seed: int | None = None):
         self.config = config or CircuitConfig.standard_recursion_config()
@@ -85,6 +104,14 @@ class CircuitBuilder:
         self.gate_instances.append((gate, constants))
         return row
 
+    def add_gate_to_gate_set(self, gate: Gate) -> None:
+        """Register a gate type in the selector set without an instance
+        (reference: circuit_builder.rs add_gate_to_gate_set)."""
+        self.gate_types.setdefault(gate.id(), gate)
+
+    def add_simple_generator(self, g) -> None:
+        self.generators.append(g)
+
     def find_slot(self, gate: Gate, params: tuple, constants: list[int]):
         """Batched-op slot allocation (reference: circuit_builder.rs:786)."""
         slots = self.current_slots.setdefault(gate.id(), {})
@@ -100,6 +127,12 @@ class CircuitBuilder:
 
     def connect(self, x, y) -> None:
         self.copy_constraints.append((x, y))
+
+    def assert_zero(self, x) -> None:
+        self.connect(x, self.zero())
+
+    def assert_one(self, x) -> None:
+        self.connect(x, self.one())
 
     # -- constants and arithmetic ---------------------------------------------
     def constant(self, c: int):
@@ -117,11 +150,17 @@ class CircuitBuilder:
     def one(self):
         return self.constant(1)
 
+    def two(self):
+        return self.constant(2)
+
+    def target_as_constant(self, t):
+        return self.targets_to_constants.get(t)
+
     def arithmetic(self, const_0: int, const_1: int, m0, m1, addend):
         """A target for const_0 * m0 * m1 + const_1 * addend."""
         const_0 %= ref.ORDER
         const_1 %= ref.ORDER
-        known = [self.targets_to_constants.get(t) for t in (m0, m1, addend)]
+        known = [self.target_as_constant(t) for t in (m0, m1, addend)]
         if None not in known:
             c0, c1, ca = known
             return self.constant((const_0 * c0 % ref.ORDER * c1
@@ -141,18 +180,42 @@ class CircuitBuilder:
     def add(self, a, b):
         return self.arithmetic(1, 1, a, self.one(), b)
 
+    def sub(self, a, b):
+        return self.arithmetic(1, ref.ORDER - 1, a, self.one(), b)
+
     def mul(self, a, b):
         return self.arithmetic(1, 0, a, b, self.zero())
 
-    # -- hashing gadget (reference: hash/hashing.rs:18-64) --------------------
-    def permute(self, inputs: list):
-        swap = self.zero()
+    def mul_add(self, a, b, c):
+        return self.arithmetic(1, 1, a, b, c)
+
+    def mul_const(self, c: int, a):
+        return self.arithmetic(c, 0, a, self.one(), self.zero())
+
+    def add_const(self, a, c: int):
+        return self.arithmetic(1, c, a, self.one(), self.one())
+
+    def square(self, a):
+        return self.mul(a, a)
+
+    def inverse(self, x):
+        """x_inv with x * x_inv = 1 (x must be nonzero)."""
+        x_inv = self.add_virtual_target()
+        self.generators.append(_InverseGenerator(x, x_inv))
+        self.assert_one(self.mul(x, x_inv))
+        return x_inv
+
+    # -- hashing gadgets (reference: hash/hashing.rs:18-64) -------------------
+    def permute_swapped(self, inputs: list, swap):
         gate = PoseidonGate()
         row = self.add_gate(gate, [])
         self.connect(swap, wire(row, gate.WIRE_SWAP))
         for i in range(W):
             self.connect(inputs[i], wire(row, gate.wire_input(i)))
         return [wire(row, gate.wire_output(i)) for i in range(W)]
+
+    def permute(self, inputs: list):
+        return self.permute_swapped(inputs, self.zero())
 
     def hash_n_to_m_no_pad(self, inputs: list, num_outputs: int):
         state = [self.zero()] * W
@@ -167,6 +230,14 @@ class CircuitBuilder:
                     return outputs
             state = self.permute(state)
 
+    def hash_n_to_hash_no_pad(self, inputs: list):
+        return self.hash_n_to_m_no_pad(inputs, NUM_HASH_OUT_ELTS)
+
+    def hash_or_noop(self, inputs: list):
+        if len(inputs) <= NUM_HASH_OUT_ELTS:
+            return inputs + [self.zero()] * (NUM_HASH_OUT_ELTS - len(inputs))
+        return self.hash_n_to_hash_no_pad(inputs)
+
     def public_inputs_hash_gadget(self, inputs: list):
         """Public inputs are always hashed, even when <= 4."""
         return self.hash_n_to_m_no_pad(inputs, NUM_HASH_OUT_ELTS)
@@ -180,6 +251,13 @@ class CircuitBuilder:
     # -- build ----------------------------------------------------------------
     def build(self, *, device="cuda", min_degree_bits: int | None = None,
               gc=PoseidonGoldilocksConfig) -> CircuitData:
+        return commit(self.build_host(min_degree_bits=min_degree_bits, gc=gc),
+                      device)
+
+    def build_host(self, *, min_degree_bits: int | None = None,
+                   gc=PoseidonGoldilocksConfig) -> HostCircuit:
+        """The host part of `build()`: rows, selectors, constants, sigmas,
+        the representative map and the generators; commits nothing."""
         config = self.config
         rate_bits = config.fri_config.rate_bits
         cap_height = config.fri_config.cap_height
@@ -236,10 +314,6 @@ class CircuitBuilder:
         representative_map = forest.compress_paths()
         sigma_vecs = forest.sigma_vecs(k_is, subgroup)
 
-        constants_sigmas = PolynomialBatch.from_values(
-            gl.from_u64(np.concatenate([constant_vecs, sigma_vecs]), device),
-            rate_bits, cap_height, gc.hasher)
-
         # generators per gate instance, dropping unused batched-op slots
         incomplete = {gate_idx: next_slot
                       for slots in self.current_slots.values()
@@ -250,14 +324,6 @@ class CircuitBuilder:
             if row in incomplete:
                 gens = gens[:incomplete[row]]
             generators.extend(gens)
-
-        cap = constants_sigmas.merkle_tree.cap_digests()
-        # circuit digest (circuit_builder.rs:1200-1212): hash of the cap,
-        # the padded hash of the (empty) domain separator and degree_bits
-        digest_inputs = ([x for d in cap for x in d]
-                         + list(gc.hasher.hash_pad_oracle([]))
-                         + [degree_bits])
-        circuit_digest = gc.hasher.hash_no_pad_oracle(digest_inputs)
 
         common = CommonCircuitData(
             config=config,
@@ -273,18 +339,59 @@ class CircuitBuilder:
             - 1,
             gc=gc,
         )
-        prover_only = ProverOnlyData(
-            generators=generators,
-            constants_sigmas_commitment=constants_sigmas,
-            sigmas=sigma_vecs,
+        return HostCircuit(
+            common=common,
+            constants_sigmas=np.concatenate([constant_vecs, sigma_vecs]),
             subgroup=subgroup,
-            public_inputs=list(self.public_inputs),
-            representative_map=representative_map,
-            circuit_digest=circuit_digest,
-        )
-        verifier_only = VerifierOnlyData(constants_sigmas_cap=cap,
-                                         circuit_digest=circuit_digest)
-        return CircuitData(prover_only, verifier_only, common)
+            representative_map=representative_map, generators=generators,
+            public_inputs=list(self.public_inputs))
+
+
+def commit(host: HostCircuit, device) -> CircuitData:
+    """The device part of `build()`: commits the constants and sigmas on
+    `device` and derives the circuit digest from the cap."""
+    common = host.common
+    fri_config = common.config.fri_config
+    hasher = common.gc.hasher
+    constants_sigmas = PolynomialBatch.from_values(
+        gl.from_u64(host.constants_sigmas, device), fri_config.rate_bits,
+        fri_config.cap_height, hasher)
+    cap = constants_sigmas.merkle_tree.cap_digests()
+    # circuit digest (circuit_builder.rs:1200-1212): hash of the cap, the
+    # padded hash of the (empty) domain separator and degree_bits
+    digest_inputs = ([x for d in cap for x in d]
+                     + list(hasher.hash_pad_oracle([]))
+                     + [common.degree_bits])
+    circuit_digest = hasher.hash_no_pad_oracle(digest_inputs)
+    prover_only = ProverOnlyData(
+        generators=host.generators,
+        constants_sigmas_commitment=constants_sigmas,
+        sigmas=host.constants_sigmas[common.num_constants:],
+        subgroup=host.subgroup,
+        public_inputs=host.public_inputs,
+        representative_map=host.representative_map,
+        circuit_digest=circuit_digest,
+    )
+    verifier_only = VerifierOnlyData(constants_sigmas_cap=cap,
+                                     circuit_digest=circuit_digest)
+    return CircuitData(prover_only, verifier_only, common)
+
+
+class _InverseGenerator:
+    """Fills x_inv = 1/x (reference: gadgets/arithmetic.rs inverse)."""
+
+    def __init__(self, x, x_inv):
+        self.x, self.x_inv = x, x_inv
+
+    def watch_list(self):
+        return [self.x]
+
+    def run(self, witness, out):
+        if not witness.is_set(self.x):
+            return False
+        x = witness.get(self.x)
+        out.append((self.x_inv, ref.inverse(x) if x else 0))
+        return True
 
 
 def _selector_polynomials(gates, instances, max_degree: int):

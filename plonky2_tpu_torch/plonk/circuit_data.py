@@ -148,9 +148,10 @@ class CircuitData:
     verifier_only: VerifierOnlyData
     common: CommonCircuitData
 
-    def prove(self, inputs):
+    def prove(self, inputs, step=None):
+        """`step`: see `plonk/prover.py`."""
         from .prover import prove
-        return prove(self.prover_only, self.common, inputs)
+        return prove(self.prover_only, self.common, inputs, step)
 
     def verify(self, proof_with_pis) -> None:
         from .verifier import verify

@@ -7,9 +7,15 @@ constraint over the whole LDE grid, then a coset iNTT), round 4 opens all
 polynomials at zeta and g*zeta, round 5 is FRI. Every tensor lives on the
 device of the circuit's committed constants; every commit and the FRI trees
 hash with the config's hasher.
+
+`prove(..., step=...)` lets a caller time or profile two steps of a prove:
+`step(name)` returns a context manager, entered around the host witness
+fixpoint ("witness fixpoint") and round 3 ("round 3").
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -26,7 +32,8 @@ from .proof import OpeningSet, Proof, ProofWithPublicInputs
 from .vanishing import evaluate_gate_constraints_rows
 
 
-def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
+def prove(prover_data, common, inputs, step=None) -> ProofWithPublicInputs:
+    step = step or (lambda name: contextlib.nullcontext())
     config = common.config
     fri_config = config.fri_config
     nc = config.num_challenges
@@ -34,7 +41,8 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
     device = prover_data.constants_sigmas_commitment.polynomials.device
     hasher = common.gc.hasher
 
-    witness = generate_partial_witness(inputs, prover_data, common)
+    with step("witness fixpoint"):
+        witness = generate_partial_witness(inputs, prover_data, common)
     public_inputs = [witness.get(t) for t in prover_data.public_inputs]
     public_inputs_hash = common.gc.hash_public_inputs(public_inputs)
     wires = gl.from_u64(witness.full_witness(), device)     # [num_wires, n]
@@ -65,9 +73,10 @@ def prove(prover_data, common, inputs) -> ProofWithPublicInputs:
     alphas = challenger.get_n_challenges(nc)
 
     # round 3: quotient
-    quotient_chunks = compute_quotient_polys(
-        common, prover_data, public_inputs_hash, wires_commitment,
-        zs_pp_commitment, betas, gammas, alphas)
+    with step("round 3"):
+        quotient_chunks = compute_quotient_polys(
+            common, prover_data, public_inputs_hash, wires_commitment,
+            zs_pp_commitment, betas, gammas, alphas)
     quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks,
                                                       rate_bits, cap_height,
                                                       hasher)

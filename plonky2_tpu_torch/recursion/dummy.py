@@ -25,11 +25,18 @@ def dummy_circuit(config: CircuitConfig, degree_bits: int,
     return data, pis
 
 
-def dummy_proof(data: CircuitData, pi_targets: list,
-                nonzero_public_inputs: dict[int, int] | None = None):
-    """Prove the dummy circuit; unspecified public inputs are zero."""
+def dummy_witness(pi_targets: list,
+                  nonzero_public_inputs: dict[int, int] | None = None
+                  ) -> PartialWitness:
+    """The dummy circuit's inputs; unspecified public inputs are zero."""
     nonzero_public_inputs = nonzero_public_inputs or {}
     pw = PartialWitness()
     for i, t in enumerate(pi_targets):
         pw.set_target(t, nonzero_public_inputs.get(i, 0))
-    return data.prove(pw)
+    return pw
+
+
+def dummy_proof(data: CircuitData, pi_targets: list,
+                nonzero_public_inputs: dict[int, int] | None = None):
+    """Prove the dummy circuit; unspecified public inputs are zero."""
+    return data.prove(dummy_witness(pi_targets, nonzero_public_inputs))

@@ -2,8 +2,9 @@
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
 verify fib(21) on the CPU under both ported hasher configs, and check that
 no module of JAX or of the JAX package was loaded. An AST scan checks that
-no module of the port, chip_smoke.py or the port's kernel probe
-(scripts/torch_poseidon_probe.py) imports either. This is what
+no module of the port, chip_smoke.py, the port's kernel probe
+(scripts/torch_poseidon_probe.py) or its wrap profile
+(scripts/torch_wrap_profile.py) imports either. This is what
 lets chip_smoke.py run on a machine with no JAX."""
 
 import ast
@@ -76,7 +77,8 @@ def _imported_roots(path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "scripts", "torch_poseidon_probe.py")]
+             os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
+             os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
@@ -84,3 +86,47 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
            for m in _imported_roots(f)
            if m in ("jax", "jaxlib", "plonky2_tpu")]
     assert not bad, bad
+
+
+# the modules of the recursive verifier circuit
+RECURSION_MODULES = [
+    "plonky2_tpu_torch.gates.ext_algebra",
+    "plonky2_tpu_torch.gates.extension_gates",
+    "plonky2_tpu_torch.gates.misc_gates",
+    "plonky2_tpu_torch.gates.coset_interpolation_gate",
+    "plonky2_tpu_torch.gates.target_algebra",
+    "plonky2_tpu_torch.gadgets.extension",
+    "plonky2_tpu_torch.gadgets.misc",
+    "plonky2_tpu_torch.iop.recursive_challenger",
+    "plonky2_tpu_torch.recursion.targets",
+    "plonky2_tpu_torch.recursion.fri_verifier",
+    "plonky2_tpu_torch.recursion.verifier",
+]
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["plonky2_tpu"] = None
+import plonky2_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(plonky2_tpu_torch.__path__,
+                                                "plonky2_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("\n".join(names))
+"""
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    """Each module of the port, the recursion's included, imports where
+    `import jax` and `import plonky2_tpu` fail."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    names = proc.stdout.split()
+    assert set(RECURSION_MODULES) <= set(names)
+    files = {os.path.relpath(os.path.join(d, n), ROOT)
+             for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
+             for n in ns if n.endswith(".py")}
+    assert {m.replace(".", "/") + ".py" for m in RECURSION_MODULES} <= files

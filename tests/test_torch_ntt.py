@@ -115,12 +115,22 @@ class _Schedule:
     columns."""
 
     def __init__(self, row_lg, tile_lg, min_tile_lg, min_blocks,
-                 shrink_col_lg, max_col_lg, radix_lg=3):
+                 shrink_col_lg, max_col_lg, radix_lg=3, max_lg=24):
         self.row_lg, self.tile_lg, self.min_tile_lg = row_lg, tile_lg, \
             min_tile_lg
         self.min_blocks, self.shrink_col_lg, self.max_col_lg = min_blocks, \
             shrink_col_lg, max_col_lg
-        self.radix_lg = radix_lg
+        self.radix_lg, self.max_lg = radix_lg, max_lg
+
+    def column_rounds(self, lg_N, T):
+        """`transform`'s pass B: [(s0, stages)], one round, or two when
+        more than max_col_lg stages lie above the tile."""
+        c = lg_N - T
+        if c <= self.max_col_lg:
+            return [(T, c)]
+        c1 = c // 2
+        assert 3 <= c1 <= 5, "`first_columns` takes 3 to 5 stages"
+        return [(T, c1), (T + c1, c - c1)]
 
     def pass_a_tile(self, batch, lg_N, rate):
         """`transform`'s tile for a row of 2^lg_N: the largest below the
@@ -192,7 +202,8 @@ class _Schedule:
             return out, 1
         T = self.pass_a_tile(batch, lg_N, rate)
         c = lg_N - T
-        assert 1 <= c <= self.max_col_lg and rate <= T
+        assert lg_N <= self.max_lg and 1 <= c <= 2 * self.max_col_lg - 1
+        assert rate <= T
         self.tile = T
         tiles = []
         for blk in range(batch << c):                         # `ntt_tiles`
@@ -202,13 +213,20 @@ class _Schedule:
             out[row, t << T:(t + 1) << T] = s
         assert sorted(tiles) == [(r, t) for r in range(batch)
                                  for t in range(1 << c)]
-        u = np.arange(1 << T)                                 # `ntt_columns`
-        idx = torch.as_tensor(u[:, None] + (np.arange(1 << c) << T))
-        assert sorted(idx.reshape(-1).tolist()) == list(range(N))
-        for row in range(batch):
-            v = self.butterflies(out[row][idx], T, u, c)
-            out[row][idx] = self.finish(v, idx)
-        return out, 2
+        rounds = self.column_rounds(lg_N, T)
+        for k, (s0, C) in enumerate(rounds):                  # `ntt_columns`
+            r = np.arange(1 << (lg_N - C))
+            u = r & ((1 << s0) - 1)
+            base = u | ((r >> s0) << (s0 + C))
+            idx = torch.as_tensor(base[:, None] + (np.arange(1 << C) << s0))
+            assert sorted(idx.reshape(-1).tolist()) == list(range(N))
+            last = k == len(rounds) - 1
+            for row in range(batch):
+                v = self.butterflies(out[row][idx], s0, u, C)
+                out[row][idx] = self.finish(v, idx) if last else v
+        assert [st for s0, C in rounds for st in range(s0, s0 + C)] == \
+            list(range(T, lg_N))
+        return out, 1 + len(rounds)
 
 
 def _model_forward(sched, x, rate_bits, shift):
@@ -233,7 +251,7 @@ def _model_inverse(sched, v, shift):
 
 
 KERNEL = ("kRowLg", "kTileLg", "kMinTileLg", "kMinBlocks", "kShrinkColLg",
-          "kMaxColLg", "kRadixLg")
+          "kMaxColLg", "kRadixLg", "kMaxLg")
 # reduced tiles: rows of 2^7..2^13 run both passes over several tiles,
 # and batches of 1..3 shrink them
 SMALL = dict(row_lg=6, tile_lg=7, min_tile_lg=4, min_blocks=8,
@@ -246,8 +264,18 @@ def _kernel_schedule():
 
 def test_schedule_constants_mirror_the_kernel():
     assert [_kernel_constant(name) for name in KERNEL] == \
-        [10, 13, 9, 512, 4, 6, 3]
+        [10, 13, 9, 512, 4, 6, 3, 24]
+    assert ntt.MAX_LG == _kernel_constant("kMaxLg")
     sched = _kernel_schedule()
+    # rows up to 2^19 keep one column round; above it two, up to 2^24
+    assert [len(sched.column_rounds(lg, sched.pass_a_tile(b, lg, r)))
+            for b, lg, r in [(135, 17, 3), (1, 19, 3), (1, 20, 3),
+                             (2, 20, 0), (1, 24, 3), (1, 24, 0)]] == \
+        [1, 1, 2, 2, 2, 2]
+    # the first round, unreduced, is the smaller: 3 to 5 stages
+    assert sched.column_rounds(24, 13) == [(13, 5), (18, 6)]
+    assert sched.column_rounds(20, 13) == [(13, 3), (16, 4)]
+    assert ntt.MAX_LG - sched.tile_lg == 2 * sched.max_col_lg - 1
     # the prover's calls: tiles of 2^13 for [135|20|16, 2^17] and [2, 2^17]
     # (pass B's columns stay at 2^4), 2^12 for [135, 2^14], 2^10 for
     # [20, 2^14], 2^9 for the fold [2, 2^13]
@@ -295,6 +323,39 @@ def test_schedule_model_vs_jax(name, lg_n):
         assert launches == (1 if lg_n + rate_bits <= SMALL["row_lg"] else 2)
         np.testing.assert_array_equal(gl.to_u64(got), want.to_u64(),
                                       err_msg=f"{name} 2^{lg_n} r{rate_bits}")
+
+
+@pytest.mark.parametrize("name,lg_N,rate_bits,batch", [
+    ("coset_lde", 14, 3, 2), ("coset_lde", 15, 2, 1), ("coset_lde", 16, 3, 1),
+    ("lde_fft", 16, 1, 1), ("coset_fft", 14, 0, 1), ("ifft", 14, 0, 2),
+    ("ifft", 16, 0, 1), ("coset_ifft", 15, 0, 1), ("coset_ifft", 16, 0, 1)])
+def test_schedule_model_second_column_round_vs_jax(name, lg_N, rate_bits,
+                                                   batch):
+    """Rows past tile_lg + max_col_lg (2^13 under SMALL, 2^19 on the card)
+    take two column rounds, three launches: the model equals the JAX NTT."""
+    sched = _Schedule(**SMALL)
+    lg_n = lg_N - rate_bits
+    shift = SHIFTS[lg_N % len(SHIFTS)]
+    x = _rand(batch, 1 << lg_n)
+    t = gl.from_u64(x, "cpu")
+    if name == "coset_lde":
+        got, launches = _model_forward(sched, t, rate_bits, shift)
+        want = jntt.coset_lde(GF.from_u64(x), rate_bits, shift)
+    elif name == "lde_fft":
+        got, launches = _model_forward(sched, t, rate_bits, None)
+        want = jntt.lde_fft(GF.from_u64(x), rate_bits)
+    elif name == "coset_fft":
+        got, launches = _model_forward(sched, t, 0, shift)
+        want = jntt.coset_fft(GF.from_u64(x), shift)
+    elif name == "ifft":
+        got, launches = _model_inverse(sched, t, None)
+        want = jntt.ifft(GF.from_u64(x))
+    else:
+        got, launches = _model_inverse(sched, t, shift)
+        want = jntt.coset_ifft(GF.from_u64(x), shift)
+    assert launches == 3 and len(sched.column_rounds(lg_N, sched.tile)) == 2
+    np.testing.assert_array_equal(gl.to_u64(got), want.to_u64(),
+                                  err_msg=f"{name} 2^{lg_N} r{rate_bits}")
 
 
 @pytest.mark.parametrize("name", ["fft_ext", "coset_fft_ext",
@@ -347,6 +408,13 @@ def test_stage_twiddles_and_inverse_scale():
         [n_inv] * (1 << lg)
     assert gl.to_ints(ntt.inverse_scale(G, 1 << lg, "cpu")) == [
         ref.mul(n_inv, ref.exp(ref.inverse(G), i)) for i in range(1 << lg)]
+
+
+def test_wrappers_reject_rows_past_the_kernels_limit():
+    """Above 2^24 points the kernel path raises before any launch."""
+    x = torch.zeros(1 << 22, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="at most 2\\^24"):
+        ntt._forward_rows(x, 1 << 22, 1, (1,), 3, None)
 
 
 def test_wrappers_reject_other_devices():
