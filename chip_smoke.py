@@ -28,17 +28,31 @@ Phases, each of which raises on failure:
      tamper-checked, with its degree, gates, build and prove seconds (the
      warm proves' median and range), the shares of the host witness
      fixpoint and of round 3 (the quotient), and the peak device memory
-     (phases 3, 5 and 7 log the same);
-  7. dummy-2^14-poseidon2: phase 5 under Poseidon2;
-  8. every kernel against its plain PyTorch version on the card, over full
-     outputs, at every shape phases 3 and 5-7 launched it at (tolerance:
+     (phases 3, 5 and 7-9 log the same);
+  7. cyclic-ivc: the reference's test_cyclic_recursion at
+     standard_recursion_config(): the goal CommonCircuitData of degree 2^13
+     (recursion/cyclic.py common_data_for_recursion, host layout), the
+     hash-chain circuit built on it (a dummy proof for the goal is proved
+     inside the build), the base proof (a dummy proof carrying the
+     circuit's verifier data), then three steps, each verifying the proof
+     before it: every step verified, its embedded verifier data checked,
+     its counter 1, 2, 3 and its latest hash equal to the host Poseidon
+     iterated from [0, 1, 2, 3]; a flipped opening and public input, and a
+     changed embedded verifier key (step 2, and the base proof, which the
+     witness fixpoint refuses), rejected;
+  8. conditional: tests/test_conditional.py's circuit: fib(100) and fib(99)
+     proved, the outer circuit verifying one of them by a boolean built,
+     proved with condition 1 and 0, both verified and tampered;
+  9. dummy-2^14-poseidon2: phase 5 under Poseidon2;
+  10. every kernel against its plain PyTorch version on the card, over full
+     outputs, at every shape phases 3 and 5-9 launched it at (tolerance:
      bit-exact), with its device time, its wrapper's time, the plain
      version's time, its bound and its device ms per warm prove;
-  9. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
+  11. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
      rate 3, inverse [2, 2^20] with and without a shift and [1, 2^24],
      against the plain version over full outputs, with device ms and
      launches a call;
-  10. edge batches: K2 and K6 (both entries each), K3 and K7 against their
+  12. edge batches: K2 and K6 (both entries each), K3 and K7 against their
      plain versions on states and leaves made of 0, 1, 2^32 - 1, 2^32,
      p - 1 = 2^64 - 2^32 and the non-canonical p, p + 1 and 2^64 - 1, mixed
      with random ones, on states of all 2^64 - 1, and on leaves of p - 1;
@@ -47,13 +61,13 @@ Phases, each of which raises on failure:
      rows of 0, 1, p - 1, 2^32 - 1 and 2^32 mixed with random values, and on
      rows of all p - 1 (bit-exact; rows past 2^19 points pass values left
      unreduced from one column round to the next);
-  11. PoW stress: the full output of one 2^19-state wave of K2 and of K6
+  13. PoW stress: the full output of one 2^19-state wave of K2 and of K6
      against the host C permutation, then waves from the fib100 and
      fib21-poseidon2 transcript states through both hashers and from random
      sponge states (48 through K2, 24 through K6), each witness checked on
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
-The kernel counts are set to 0 just before each of phases 3 and 5-7 and
+The kernel counts are set to 0 just before each of phases 3 and 5-9 and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -243,13 +257,15 @@ def _tampered(proof):
     return out
 
 
-def _drive(name: str, device, build, kernels: tuple):
-    """Build, prove cold and WARM_PROVES times warm, verify and
-    tamper-check one circuit; the counts are set to 0 just before and read
-    just after. `build()` returns the circuit's data and a function that
-    makes the witness of a prove. Returns ((launches, shapes, warm shapes),
-    data, cold proof): {kernel: launches}, {kernel: {shape: launches}} and
-    the last warm prove's {kernel: {shape: launches}}."""
+def _drive(name: str, device, build, kernels: tuple,
+           proves: int = 1 + WARM_PROVES):
+    """Build one circuit, prove it `proves` times (a cold prove, then warm
+    ones), verify every proof and tamper-check the first; the counts are set
+    to 0 just before and read just after. `build()` returns the circuit's
+    data and `inputs(proofs)`, the witness of the next prove given the
+    proofs made so far. Returns ((launches, shapes, warm shapes), data,
+    proofs): {kernel: launches}, {kernel: {shape: launches}} and the last
+    prove's {kernel: {shape: launches}}."""
     from plonky2_tpu_torch import backend
 
     torch.cuda.synchronize(device)
@@ -272,9 +288,9 @@ def _drive(name: str, device, build, kernels: tuple):
             seconds[what] = time.perf_counter() - t
         return step
     times, proofs, step_s = [], [], []
-    for _ in range(1 + WARM_PROVES):
+    for _ in range(proves):
         before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
-        pw = inputs()
+        pw = inputs(proofs)
         step_s.append({})
         t0 = time.perf_counter()
         proofs.append(data.prove(pw, timer(step_s[-1])))
@@ -318,7 +334,7 @@ def _drive(name: str, device, build, kernels: tuple):
     log(f"{name}: {common.gc.name}, degree 2^{common.degree_bits}, FRI "
         f"arities {common.fri_params.reduction_arity_bits}, build "
         f"{t_build:.3f} s, prove cold {times[0]:.3f} s ({cold}), warm x"
-        f"{WARM_PROVES} {spread(times[1:], '{:.3f} s'.format)} ({warm_s}), "
+        f"{proves - 1} {spread(times[1:], '{:.3f} s'.format)} ({warm_s}), "
         f"verify {t_verify:.3f} s, peak allocated {peak / 2**20:.1f} MiB")
     log(f"{name}: warm proves {[round(t, 3) for t in times[1:]]} s, steps "
         f"{[{k: round(v, 3) for k, v in s.items()} for s in step_s[1:]]}")
@@ -327,7 +343,7 @@ def _drive(name: str, device, build, kernels: tuple):
     for k, prefix in (("K2", "poseidon"), ("K6", "poseidon2")):
         log(f"{name}: {k} launches (permute + merkle_tree) "
             f"{launches[prefix + '_permute'] + launches[prefix + '_merkle_tree']}")
-    return (launches, shapes, warm), data, proofs[0]
+    return (launches, shapes, warm), data, proofs
 
 
 def _dummy_build(gc, device):
@@ -337,7 +353,7 @@ def _dummy_build(gc, device):
     def build():
         data, pis = dummy_circuit(CircuitConfig.standard_recursion_config(),
                                   14, 4, device=device, gc=gc)
-        return data, lambda: dummy_witness(pis, {0: 42})
+        return data, lambda proofs: dummy_witness(pis, {0: 42})
     return build
 
 
@@ -348,7 +364,7 @@ def _wrap_build(inner, proof, device):
 
     def build():
         builder, witness = wrap_circuit(inner)
-        return builder.build(device=device), lambda: witness(proof)
+        return builder.build(device=device), lambda proofs: witness(proof)
     return build
 
 
@@ -357,8 +373,8 @@ def fib100_wrap(device, fib):
     from plonky2_tpu_torch.utils.serialization import (
         serialize_proof_with_pis,
     )
-    run, data, proof = _drive("fib100-wrap", device,
-                              _wrap_build(*fib, device), POSEIDON_PATH)
+    run, data, (proof, *_) = _drive("fib100-wrap", device,
+                                    _wrap_build(*fib, device), POSEIDON_PATH)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "fib100_wrap_proof.bin"), "wb") as f:
         f.write(serialize_proof_with_pis(proof, data.common))
@@ -391,6 +407,232 @@ def wrap_1(device, inner, proof):
 def wrap_2(device, inner, proof):
     return _drive("wrap-2", device, _wrap_build(inner, proof, device),
                   POSEIDON_PATH)
+
+
+# the degree of the cyclic circuit's goal CommonCircuitData at
+# standard_recursion_config(): the smallest at which the hash-chain circuit
+# fits (the verifier of a verifier of an empty circuit already needs 2^13)
+CYCLIC_DEGREE_BITS = 13
+CYCLIC_STEPS = 3
+INITIAL_HASH = [0, 1, 2, 3]
+
+
+def _hash_chain(common, device, seconds: dict):
+    """The reference's test_cyclic_recursion circuit: public inputs
+    [initial hash (4), latest hash (4), counter, the circuit's own verifier
+    data]; a step hashes the inner proof's latest hash (condition 1) or the
+    initial hash (condition 0, the base step, whose inner proof is a dummy)
+    and adds one to the inner counter. Sets `common.num_public_inputs`, as
+    the reference does. Returns (builder, inputs(condition, inner proof,
+    verifier data) -> PartialWitness); `seconds` gets the dummy circuit's
+    build and the dummy prove (with the verifier's layout) made inside."""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu_torch.recursion.cyclic import (
+        conditionally_verify_cyclic_proof_or_dummy,
+    )
+    from plonky2_tpu_torch.recursion.dummy import dummy_circuit_for_common
+    from plonky2_tpu_torch.recursion.targets import (
+        add_virtual_proof_with_pis, set_proof_with_pis_target,
+        set_verifier_data_target,
+    )
+
+    builder = CircuitBuilder(common.config, seed=1234)
+    one = builder.one()
+    initial_hash = builder.add_virtual_targets(4)
+    builder.register_public_inputs(initial_hash)
+    current_hash_in = builder.add_virtual_targets(4)
+    builder.register_public_inputs(
+        builder.hash_n_to_hash_no_pad(list(current_hash_in)))
+    counter = builder.add_virtual_target()
+    builder.register_public_input(counter)
+    verifier_data = builder.add_verifier_data_public_inputs()
+    common.num_public_inputs = len(builder.public_inputs)
+
+    condition = builder.add_virtual_target()
+    builder.assert_bool(condition)
+    inner = add_virtual_proof_with_pis(builder, common)
+    inner_pis = inner.public_inputs
+    for t, u in zip(initial_hash, inner_pis[0:4]):
+        builder.connect(t, u)
+    for t, a, b in zip(current_hash_in, inner_pis[4:8], initial_hash):
+        builder.connect(t, builder.select(condition, a, b))
+    builder.connect(counter, builder.mul_add(condition, inner_pis[8], one))
+
+    t0 = time.perf_counter()
+    dummy_circuit_for_common(common, device=device)
+    torch.cuda.synchronize(device)
+    seconds["dummy build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conditionally_verify_cyclic_proof_or_dummy(builder, condition, inner,
+                                               common, device=device)
+    torch.cuda.synchronize(device)
+    seconds["dummy prove + verifier layout"] = time.perf_counter() - t0
+
+    def inputs(condition_value, inner_proof, verifier_only):
+        pw = PartialWitness()
+        pw.set_target(condition, condition_value)
+        set_proof_with_pis_target(pw, inner, inner_proof)
+        set_verifier_data_target(pw, verifier_data, verifier_only)
+        return pw
+    return builder, inputs
+
+
+@phase("cyclic-ivc")
+def cyclic_ivc(device):
+    """The reference's test_cyclic_recursion at standard_recursion_config():
+    the hash-chain circuit verifies, at each step, a proof of itself (at
+    the base step, a dummy proof); CYCLIC_STEPS steps proved, verified and
+    checked against the host Poseidon, then tampered."""
+    from plonky2_tpu_torch.hash.hashers import POSEIDON
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.recursion.cyclic import (
+        check_cyclic_proof_verifier_data, common_data_for_recursion,
+    )
+    from plonky2_tpu_torch.recursion.dummy import cyclic_base_proof
+
+    t0 = time.perf_counter()
+    common = common_data_for_recursion(
+        CircuitConfig.standard_recursion_config(), CYCLIC_DEGREE_BITS)
+    t_goal = time.perf_counter() - t0
+    seconds, made = {}, {}
+
+    def build():
+        t0 = time.perf_counter()
+        builder, made["inputs"] = _hash_chain(common, device, seconds)
+        t1 = time.perf_counter()
+        data = builder.build(device=device)
+        torch.cuda.synchronize(device)
+        seconds["layout"] = t1 - t0
+        seconds["build_host + commit"] = time.perf_counter() - t1
+        if not data.common.same_shape(common):
+            raise AssertionError("cyclic-ivc: the circuit's CommonCircuitData "
+                                 "is not the goal's")
+
+        def step_inputs(proofs):
+            if proofs:
+                return made["inputs"](1, proofs[-1], data.verifier_only)
+            t = time.perf_counter()
+            made["base"] = cyclic_base_proof(
+                common, data.verifier_only, dict(enumerate(INITIAL_HASH)),
+                device=device)
+            torch.cuda.synchronize(device)
+            seconds["base proof"] = time.perf_counter() - t
+            check_cyclic_proof_verifier_data(made["base"], data.verifier_only,
+                                             common)
+            return made["inputs"](0, made["base"], data.verifier_only)
+        return data, step_inputs
+
+    run, data, proofs = _drive("cyclic-ivc", device, build, POSEIDON_PATH,
+                               proves=CYCLIC_STEPS)
+    latest = list(INITIAL_HASH)
+    for k, proof in enumerate(proofs, 1):
+        check_cyclic_proof_verifier_data(proof, data.verifier_only,
+                                         data.common)
+        latest = list(POSEIDON.hash_no_pad_oracle(latest))
+        pis = proof.public_inputs
+        if pis[0:4] != INITIAL_HASH or pis[4:8] != latest or pis[8] != k:
+            raise AssertionError(f"cyclic-ivc: step {k} public inputs "
+                                 f"{pis[:9]}, want {INITIAL_HASH}, {latest}, "
+                                 f"{k}")
+    log(f"cyclic-ivc: {len(proofs)} steps verified, their verifier data "
+        f"checked, counters {[p.public_inputs[8] for p in proofs]}, latest "
+        f"hash {latest} equal to the host Poseidon's")
+
+    # one element of the embedded verifier data changed: in the step-2
+    # proof, and in the base proof, whose copy constraints the witness
+    # fixpoint then cannot meet (before any device work)
+    vk_start = common.num_public_inputs - 4 - 4 * \
+        common.config.fri_config.num_cap_elements
+    bad_step, bad_base = copy.deepcopy(proofs[1]), copy.deepcopy(made["base"])
+    for bad in (bad_step, bad_base):
+        bad.public_inputs[vk_start] = (bad.public_inputs[vk_start] + 1) % P
+    checks = [("check_cyclic_proof_verifier_data", "",
+               lambda: check_cyclic_proof_verifier_data(
+                   bad_step, data.verifier_only, data.common)),
+              ("verify", "", lambda: data.verify(bad_step)),
+              ("the base step's witness fixpoint", "set twice",
+               lambda: data.prove(made["inputs"](0, bad_base,
+                                                 data.verifier_only)))]
+    for what, message, check in checks:
+        try:
+            check()
+        except AssertionError as e:
+            if message not in str(e):
+                raise
+            log(f"cyclic-ivc: a changed embedded verifier key rejected by "
+                f"{what} ({str(e)[:160]})")
+        else:
+            raise AssertionError(f"cyclic-ivc: {what} accepted a changed "
+                                 f"embedded verifier key")
+    log(f"cyclic-ivc: goal CommonCircuitData (host layout) {t_goal:.3f} s; "
+        f"build parts {({k: round(v, 3) for k, v in seconds.items()})} s")
+    for name in POSEIDON_PATH:
+        log(f"cyclic-ivc: {name} launches by shape {run[1][name]}")
+    return run
+
+
+@phase("conditional")
+def conditional(device):
+    """tests/test_conditional.py's circuit on the card: fib(100) and fib(99)
+    proved (two circuits of one shape), the outer circuit that verifies the
+    first where its condition is 1 and the second where it is 0, proved
+    with condition 1 and then 0, both verified and tampered."""
+    from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.recursion.conditional import (
+        conditionally_verify_proof,
+    )
+    from plonky2_tpu_torch.recursion.targets import (
+        add_virtual_proof_with_pis, add_virtual_verifier_data,
+        set_proof_with_pis_target, set_verifier_data_target,
+    )
+
+    inner = [_fib(steps, PoseidonGoldilocksConfig, device)
+             for steps in (99, 98)]
+    (data0, proof0), (data1, proof1) = inner
+    if not data0.common.same_shape(data1.common):
+        raise AssertionError("conditional: fib(100) and fib(99) differ in "
+                             "shape")
+    if data0.verifier_only.circuit_digest == data1.verifier_only.circuit_digest:
+        raise AssertionError("conditional: the two inner circuits are one")
+
+    def build():
+        config = CircuitConfig.standard_recursion_config()
+        builder = CircuitBuilder(config, seed=1234)
+        condition = builder.add_virtual_target()
+        builder.assert_bool(condition)
+        pts = [add_virtual_proof_with_pis(builder, data0.common)
+               for _ in inner]
+        vts = [add_virtual_verifier_data(builder,
+                                         config.fri_config.cap_height)
+               for _ in inner]
+        conditionally_verify_proof(builder, condition, pts[0], vts[0],
+                                   pts[1], vts[1], data0.common)
+        data = builder.build(device=device)
+
+        def inputs(proofs):
+            pw = PartialWitness()
+            pw.set_target(condition, 0 if proofs else 1)
+            for pt, vt, (d, p) in zip(pts, vts, inner):
+                set_proof_with_pis_target(pw, pt, p)
+                set_verifier_data_target(pw, vt, d.verifier_only)
+            return pw
+        return data, inputs
+
+    run, data, proofs = _drive("conditional", device, build, POSEIDON_PATH,
+                               proves=2)
+    for what, bad in _tampered(proofs[1]):
+        try:
+            data.verify(bad)
+        except AssertionError as e:
+            log(f"conditional: condition 0, {what} rejected ({e})")
+        else:
+            raise AssertionError(f"conditional: a condition-0 proof with a "
+                                 f"{what} verified")
+    return run
 
 
 @phase("dummy-2^14-poseidon2")
@@ -847,9 +1089,12 @@ def main() -> int:
 
     runs = {"fib100-wrap": fib100_wrap(device, fib100(device))}
     fib21_poseidon2(device)
-    runs["dummy-2^14"], dummy, dummy_proof = dummy_2_14(device)
-    runs["wrap-1"], wrap, wrap_proof = wrap_1(device, dummy, dummy_proof)
+    runs["dummy-2^14"], dummy, (dummy_proof, *_) = dummy_2_14(device)
+    runs["wrap-1"], wrap, (wrap_proof, *_) = wrap_1(device, dummy,
+                                                    dummy_proof)
     runs["wrap-2"] = wrap_2(device, wrap, wrap_proof)[0]
+    runs["cyclic-ivc"] = cyclic_ivc(device)
+    runs["conditional"] = conditional(device)
     runs["dummy-2^14-poseidon2"] = dummy_2_14_poseidon2(device)
     table = kernels_vs_plain(device, runs, clock)
     k1_past_2_19(device, table, clock)

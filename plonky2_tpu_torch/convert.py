@@ -126,6 +126,12 @@ def generator_from(g):
     if kind in by_targets:
         cls, fields = by_targets[kind]
         return cls(*(_target(getattr(g, f)) for f in fields))
+    if kind == "DummyProofGenerator":
+        # it holds a proof made by the JAX package at build time
+        raise NotImplementedError(
+            "generator not ported: DummyProofGenerator (a JAX-built cyclic "
+            "or dummy-verifying circuit carries a JAX proof; build the "
+            "circuit with the port instead)")
     if kind == "_BaseSumGenerator":
         return _BaseSumGenerator([tuple(b) for b in g.bits],
                                  tuple(g.sum_target))

@@ -2,7 +2,8 @@
 add_gate:445, connect:516, find_slot:786, blind_and_pad:884,
 build:1045-1265) for non-ZK circuits: virtual targets, public inputs,
 connect, constants, arithmetic, the hashing gadgets, the extension and misc
-gadget mixins the recursive verifier uses, padding and `build()`.
+gadget mixins the recursive verifier uses, the verifier data of a cyclic
+circuit, padding and `build()`.
 
 `build()` runs in two steps: `build_host()` lays out the rows, constants,
 selectors and sigmas, the representative map and the generators on the
@@ -73,6 +74,11 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets):
         self.current_slots: dict[str, dict[tuple, tuple[int, int]]] = {}
         self.generators: list = []
         self._rng = np.random.default_rng(seed)
+        # cyclic recursion (reference: circuit_builder.rs:196-200): this
+        # circuit's own verifier data among its public inputs, and the
+        # CommonCircuitData its build must equal
+        self.verifier_data_public_input = None
+        self.goal_common_data = None
 
     # -- targets --------------------------------------------------------------
     def add_virtual_target(self):
@@ -90,6 +96,9 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets):
         self.public_inputs.extend(ts)
 
     # -- gates ----------------------------------------------------------------
+    def num_gates(self) -> int:
+        return len(self.gate_instances)
+
     def add_gate(self, gate: Gate, constants: list[int]) -> int:
         assert gate.num_wires() <= self.config.num_wires, \
             f"{gate.id()} needs {gate.num_wires()} wires"
@@ -108,6 +117,21 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets):
         """Register a gate type in the selector set without an instance
         (reference: circuit_builder.rs add_gate_to_gate_set)."""
         self.gate_types.setdefault(gate.id(), gate)
+
+    def add_verifier_data_public_inputs(self):
+        """Register this circuit's own verifier data as its last public
+        inputs, [..., circuit_digest (4), constants_sigmas_cap (4 * 2^h)]
+        (reference: circuit_builder.rs:427-442); register no public input
+        after it."""
+        assert self.verifier_data_public_input is None, \
+            "add_verifier_data_public_inputs only needs to be called once"
+        from ..recursion.targets import add_virtual_verifier_data
+        vd = add_virtual_verifier_data(self, self.config.fri_config.cap_height)
+        self.register_public_inputs(vd.circuit_digest)
+        for h in vd.constants_sigmas_cap:
+            self.register_public_inputs(h)
+        self.verifier_data_public_input = vd
+        return vd
 
     def add_simple_generator(self, g) -> None:
         self.generators.append(g)
@@ -339,6 +363,10 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets):
             - 1,
             gc=gc,
         )
+        if self.goal_common_data is not None:
+            assert common.same_shape(self.goal_common_data), \
+                ("cyclic recursion: built CommonCircuitData does not match "
+                 "the goal passed to conditionally_verify_cyclic_proof")
         return HostCircuit(
             common=common,
             constants_sigmas=np.concatenate([constant_vecs, sigma_vecs]),

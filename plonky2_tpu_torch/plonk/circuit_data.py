@@ -51,6 +51,23 @@ class CommonCircuitData:
     # CircuitData<F, C, D>, plonk/config.rs:115-208)
     gc: "GenericConfig"
 
+    def same_shape(self, other: "CommonCircuitData") -> bool:
+        """Equal in every field, gates compared by id (the reference
+        derives PartialEq on CommonCircuitData, circuit_data.rs:415): a
+        proof of one circuit fits the verifier of the other."""
+        return (self.config == other.config
+                and self.fri_params == other.fri_params
+                and self.gc.name == other.gc.name
+                and [g.id() for g in self.gates] == [g.id()
+                                                     for g in other.gates]
+                and self.selectors_info == other.selectors_info
+                and self.quotient_degree_factor == other.quotient_degree_factor
+                and self.num_gate_constraints == other.num_gate_constraints
+                and self.num_constants == other.num_constants
+                and self.num_public_inputs == other.num_public_inputs
+                and self.k_is == other.k_is
+                and self.num_partial_products == other.num_partial_products)
+
     @property
     def degree_bits(self) -> int:
         return self.fri_params.degree_bits

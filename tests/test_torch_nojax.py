@@ -88,7 +88,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
-# the modules of the recursive verifier circuit
+# the modules of the recursive verifier circuit, and of conditional and
+# cyclic recursion
 RECURSION_MODULES = [
     "plonky2_tpu_torch.gates.ext_algebra",
     "plonky2_tpu_torch.gates.extension_gates",
@@ -101,6 +102,9 @@ RECURSION_MODULES = [
     "plonky2_tpu_torch.recursion.targets",
     "plonky2_tpu_torch.recursion.fri_verifier",
     "plonky2_tpu_torch.recursion.verifier",
+    "plonky2_tpu_torch.recursion.dummy",
+    "plonky2_tpu_torch.recursion.conditional",
+    "plonky2_tpu_torch.recursion.cyclic",
 ]
 
 IMPORT_ALL = r"""
