@@ -189,18 +189,23 @@ def circuit_data_from_arrays(common, *, polynomials: np.ndarray,
                              circuit_digest, generators: list,
                              public_inputs: list, device) -> CircuitData:
     """polynomials: uint64 [num_polys, degree] coefficients; leaves: uint64
-    [lde_size, num_polys] in bit-reversed row order; layers: uint64 [m, 4]
-    digest layers, leaf layer first and cap last."""
+    [lde_size, num_polys] in bit-reversed row order; layers: numpy digest
+    layers, leaf layer first and cap last (uint64 [m, 4], or uint8 [m, 25]
+    under Keccak), kept on the host for a host hasher; circuit_digest: 4
+    ints, or bytes under Keccak."""
     port_common = common_from(common)
     cap_height = port_common.config.fri_config.cap_height
-    tree = MerkleTree(gl.from_u64(leaves, device), cap_height,
-                      port_common.gc.hasher,
-                      layers=[gl.from_u64(l, device) for l in layers])
+    hasher = port_common.gc.hasher
+    tree = MerkleTree(gl.from_u64(leaves, device), cap_height, hasher,
+                      layers=[gl.from_u64(l, device) if hasher.device
+                              else np.asarray(l, dtype=hasher.digest_dtype)
+                              for l in layers])
     commitment = PolynomialBatch(
         gl.from_u64(polynomials, device), tree,
         log2_strict(polynomials.shape[-1]),
         port_common.config.fri_config.rate_bits)
-    digest = tuple(int(x) for x in circuit_digest)
+    digest = (tuple(int(x) for x in circuit_digest) if hasher.algebraic
+              else bytes(circuit_digest))
     prover_only = ProverOnlyData(
         generators=[generator_from(g) for g in generators],
         constants_sigmas_commitment=commitment,

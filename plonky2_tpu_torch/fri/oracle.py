@@ -2,11 +2,12 @@
 fri/oracle.rs from_values:62, from_coeffs:134, get_lde_values:474,
 prove_openings:508 with the final-poly-times-X tweak at :547).
 
-A commit is: iNTT (from values), coset LDE at rate 2^rate_bits (K1), the
-leaf digests hashed by the hasher straight off the [num, N] LDE columns in
-natural order (K3 or K7), then bit-reversed into leaf order, and the
-layers above them (the tree entry of K2 or K6). The leaves themselves are
-the LDE rows in bit-reversed order.
+A commit is: iNTT (from values), coset LDE at rate 2^rate_bits (K1), then
+the Merkle tree over the LDE rows in bit-reversed order (the leaves). A
+device hasher hashes the leaf digests straight off the [num, N] LDE columns
+in natural order (K3 or K7), then bit-reverses them into leaf order, and
+builds the layers above them (the tree entry of K2 or K6); a host hasher
+(Keccak, PoseidonBN128) hashes the host copy of the leaves (`MerkleTree`).
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ class PolynomialBatch:
         lg_n = log2_strict(coeffs.shape[-1])
         lde = ntt.coset_lde(coeffs, rate_bits)                  # [num, N]
         rev = ntt._perm("rev", lde.shape[-1], lde.device)
-        digests = hasher.hash_or_noop_columns(lde).index_select(0, rev)
         leaves = lde.t().index_select(0, rev)                   # [N, num]
+        digests = (hasher.hash_or_noop_columns(lde).index_select(0, rev)
+                   if hasher.device else None)
         tree = MerkleTree(leaves, cap_height, hasher, leaf_digests=digests)
         return PolynomialBatch(coeffs, tree, lg_n, rate_bits)
 

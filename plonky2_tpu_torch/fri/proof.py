@@ -10,12 +10,12 @@ import numpy as np
 @dataclasses.dataclass
 class FriQueryStep:
     evals: list            # arity extension elements: [(c0, c1), ...]
-    merkle_proof: np.ndarray  # [levels, 4] uint64 sibling digests
+    merkle_proof: np.ndarray  # [levels, 4] uint64 (or [levels, 25] uint8)
 
 
 @dataclasses.dataclass
 class FriInitialTreeProof:
-    # per oracle: (leaf values uint64 [leaf_size], merkle proof [levels, 4])
+    # per oracle: (leaf values uint64 [leaf_size], merkle proof as above)
     evals_proofs: list
 
     def unsalted_eval(self, oracle_index: int, poly_index: int,
@@ -34,7 +34,7 @@ class FriQueryRound:
 
 @dataclasses.dataclass
 class FriProof:
-    commit_phase_merkle_caps: list  # each: uint64 [2^cap_height, 4]
+    commit_phase_merkle_caps: list  # each: 2^cap_height digests
     query_round_proofs: list        # [FriQueryRound]
     final_poly: list                # [(c0, c1)] extension coeffs
     pow_witness: int

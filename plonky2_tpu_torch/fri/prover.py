@@ -85,16 +85,18 @@ def _pow_grind_host(permute_many, state, witness_pos: int, threshold: int,
 
 def fri_proof_of_work(challenger: Challenger, pow_bits: int, device) -> int:
     """Find the smallest witness w whose duplex response has >= pow_bits
-    leading zeros. On a GPU the wave runs through the hasher's permutation
-    kernel; a CPU prover grinds through the hasher's host batch permutation
-    (the C loop of `host.py`, as the JAX prover does on CPU for Poseidon)."""
+    leading zeros. A device hasher (Poseidon, Poseidon2) on a GPU runs the
+    wave through its permutation kernel; otherwise the grind runs through
+    the hasher's host batch permutation: the C loops of `host.py` (the
+    Poseidon family on a CPU, as the JAX prover does there; PoseidonBN128,
+    threaded) or Keccak's numpy onion, on every device."""
     hasher = challenger.hasher
     state = list(challenger.sponge_state)
     witness_pos = len(challenger.input_buffer)
     for i, x in enumerate(challenger.input_buffer):
         state[i] = x
     threshold = 1 << (64 - pow_bits)
-    if torch.device(device).type == "cuda":
+    if hasher.device and torch.device(device).type == "cuda":
         witness = _pow_wave(hasher.permute, state, witness_pos, threshold,
                             max(256, min(1 << 20, 8 << pow_bits)), device)
     else:

@@ -1,12 +1,18 @@
 """Merkle tree with cap (reference: plonky2/src/hash/merkle_tree.rs).
 
-The leaf layer is one batched hash_or_noop of the hasher (K3 or K7); the
-layers above it come from the hasher's `merkle_layers` (the tree entry of
-K2 or K6, at most two launches a tree) as views into one buffer; layer l,
-node i covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the layer
-with 2^cap_height nodes.
-Leaves and digest layers stay on the tensor's device; proofs and rows are
-gathered there and copied to the host once per call.
+Layer l, node i covers leaves [i * 2^l, (i + 1) * 2^l), and the cap is the
+layer with 2^cap_height nodes. Where the layers are built depends on the
+hasher (`hashers.py`):
+- a device hasher (Poseidon, Poseidon2): the leaf layer is one batched
+  hash_or_noop (K3 or K7); the layers above it come from the hasher's
+  `merkle_layers` (the tree entry of K2 or K6, at most two launches a tree)
+  as views into one buffer, all on the leaves' device;
+- a host hasher (Keccak, PoseidonBN128): the leaves are copied to the host
+  once and the layers are numpy arrays built with `hash_leaves_np` and
+  `compress_np`, uint8 [n, 25] for Keccak and uint64 [n, 4] for BN128.
+The leaves themselves stay on their device either way (the prover reads the
+LDE back from them). Proofs and rows are gathered where the layers and the
+leaves are, and copied to the host once per call.
 """
 
 from __future__ import annotations
@@ -24,10 +30,20 @@ def build_layers(leaf_digests: torch.Tensor, cap_height: int,
     return [leaf_digests] + hasher.merkle_layers(leaf_digests, cap_height)
 
 
+def build_host_layers(leaves: np.ndarray, cap_height: int, hasher) -> list:
+    """uint64 [N, leaf_size] leaves -> numpy digest layers of a host hasher,
+    leaf layer first, cap last."""
+    layers = [hasher.hash_leaves_np(leaves)]
+    for _ in range(log2_strict(leaves.shape[0]) - cap_height):
+        layers.append(hasher.compress_np(layers[-1][0::2], layers[-1][1::2]))
+    return layers
+
+
 class MerkleTree:
     """leaves: int64 [N, leaf_size], hashed by `hasher`. `leaf_digests`
     lets a caller that already hashed the leaves (the commit, from the LDE
-    columns) skip that pass; `layers` gives a whole prebuilt tree."""
+    columns) skip that pass; `layers` gives a whole prebuilt tree (tensors
+    for a device hasher, numpy arrays for a host hasher)."""
 
     def __init__(self, leaves: torch.Tensor, cap_height: int, hasher,
                  leaf_digests: torch.Tensor | None = None,
@@ -36,20 +52,27 @@ class MerkleTree:
         assert cap_height <= self.lg_n
         self.cap_height = cap_height
         self.leaves = leaves
-        if layers is None:
-            if leaf_digests is None:
-                leaf_digests = hasher.hash_or_noop(leaves)
-            layers = build_layers(leaf_digests, cap_height, hasher)
-        self.layers = layers
+        self.hasher = hasher
         self._leaves_host = None
+        if layers is None:
+            if not hasher.device:
+                layers = build_host_layers(self.leaves_host(), cap_height,
+                                           hasher)
+            else:
+                if leaf_digests is None:
+                    leaf_digests = hasher.hash_or_noop(leaves)
+                layers = build_layers(leaf_digests, cap_height, hasher)
+        self.layers = layers
 
     @property
     def depth(self) -> int:
         return self.lg_n - self.cap_height
 
     def cap_digests(self) -> list:
-        return [tuple(int(x) for x in row)
-                for row in gl.to_u64(self.layers[-1])]
+        cap = self.layers[-1]
+        if self.hasher.device:
+            cap = gl.to_u64(cap)
+        return [self.hasher.digest_from_row(row) for row in cap]
 
     def leaves_host(self) -> np.ndarray:
         if self._leaves_host is None:
@@ -62,11 +85,18 @@ class MerkleTree:
         return gl.to_u64(self.leaves.index_select(0, idx))
 
     def prove_batch(self, indices) -> np.ndarray:
-        """uint64 [k, depth, 4] sibling paths, leaf level first."""
+        """[k, depth, digest_width] sibling paths, leaf level first: uint64
+        rows, or uint8 rows for a byte digest."""
+        h = self.hasher
+        if self.depth == 0:
+            return np.zeros((len(indices), 0, h.digest_width),
+                            dtype=h.digest_dtype)
+        if not h.device:
+            idx = np.asarray(indices, dtype=np.int64)
+            return np.stack([self.layers[lvl][(idx >> lvl) ^ 1]
+                             for lvl in range(self.depth)], axis=1)
         idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
                               device=self.leaves.device)
-        if self.depth == 0:
-            return np.zeros((len(idx), 0, 4), dtype=np.uint64)
         sibs = [self.layers[lvl].index_select(0, (idx >> lvl) ^ 1)
                 for lvl in range(self.depth)]
         return gl.to_u64(torch.stack(sibs, dim=1))
@@ -75,7 +105,8 @@ class MerkleTree:
 def verify_merkle_proof_oracle(leaf: list[int], leaf_index: int, cap, proof,
                                hasher) -> bool:
     """verify_merkle_proof_to_cap (reference: merkle_proofs.rs:42-80) on the
-    host; `cap` and `proof` rows are digests or uint64 digest rows."""
+    host; `cap` and `proof` rows are digests (tuples or bytes) or their
+    numpy rows (uint64, or uint8 for a byte digest)."""
     digest = hasher.hash_or_noop_oracle(leaf)
     idx = leaf_index
     for sibling in proof:

@@ -6,6 +6,7 @@ squeezed outputs; duplexing overwrites state[0:len(inputs)])."""
 from __future__ import annotations
 
 from ..field import reference as ref
+from ..hash.hashers import digest_to_elements
 from ..hash.sponge import SPONGE_RATE, W
 
 
@@ -34,7 +35,9 @@ class Challenger:
             self.observe_extension_element(x)
 
     def observe_hash(self, h) -> None:
-        self.observe_elements(h)
+        """A digest as its field elements (GenericHashOut::to_vec: a byte
+        digest as 7-byte LE chunks; reference: hash_types.rs:109,182-192)."""
+        self.observe_elements(digest_to_elements(h))
 
     def observe_cap(self, cap) -> None:
         for h in cap:

@@ -31,7 +31,7 @@ from ..gates.basic_gates import (
 )
 from ..gates.gate import UNUSED_SELECTOR, Gate
 from ..gates.poseidon_gate import PoseidonGate
-from ..hash.hashers import PoseidonGoldilocksConfig
+from ..hash.hashers import PoseidonGoldilocksConfig, digest_to_elements
 from ..hash.sponge import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
 from ..iop.generator import ConstantGenerator, RandomValueGenerator
 from ..iop.target import virtual, wire
@@ -386,9 +386,10 @@ def commit(host: HostCircuit, device) -> CircuitData:
         fri_config.cap_height, hasher)
     cap = constants_sigmas.merkle_tree.cap_digests()
     # circuit digest (circuit_builder.rs:1200-1212): hash of the cap, the
-    # padded hash of the (empty) domain separator and degree_bits
-    digest_inputs = ([x for d in cap for x in d]
-                     + list(hasher.hash_pad_oracle([]))
+    # padded hash of the (empty) domain separator and degree_bits, each
+    # digest as its field elements (25 bytes under Keccak: 4 elements)
+    digest_inputs = ([x for d in cap for x in digest_to_elements(d)]
+                     + digest_to_elements(hasher.hash_pad_oracle([]))
                      + [common.degree_bits])
     circuit_digest = hasher.hash_no_pad_oracle(digest_inputs)
     prover_only = ProverOnlyData(

@@ -150,13 +150,13 @@ class ProverOnlyData:
     subgroup: np.ndarray            # uint64 [degree]
     public_inputs: list
     representative_map: np.ndarray  # int64 flat target index -> rep index
-    circuit_digest: tuple
+    circuit_digest: tuple           # or bytes under a byte-digest hasher
 
 
 @dataclasses.dataclass
 class VerifierOnlyData:
-    constants_sigmas_cap: list
-    circuit_digest: tuple
+    constants_sigmas_cap: list      # 2^cap_height digests
+    circuit_digest: tuple           # or bytes under a byte-digest hasher
 
 
 @dataclasses.dataclass

@@ -12,7 +12,7 @@ from .proof import ProofChallenges, ProofWithPublicInputs
 
 def get_challenges(proof_with_pis: ProofWithPublicInputs,
                    public_inputs_hash: list[int],
-                   circuit_digest: list[int],
+                   circuit_digest,
                    common: CommonCircuitData) -> ProofChallenges:
     proof = proof_with_pis.proof
     num_challenges = common.config.num_challenges

@@ -33,9 +33,11 @@ class OpeningSet:
 
 @dataclasses.dataclass
 class Proof:
-    wires_cap: list[list[int]]
-    plonk_zs_partial_products_cap: list[list[int]]
-    quotient_polys_cap: list[list[int]]
+    """Each cap is 2^cap_height digests: tuples of 4 ints, or bytes under a
+    byte-digest hasher (Keccak)."""
+    wires_cap: list
+    plonk_zs_partial_products_cap: list
+    quotient_polys_cap: list
     openings: OpeningSet
     opening_proof: FriProof
 

@@ -1,8 +1,10 @@
 """Proof bytes (reference: plonky2/src/util/serialization/mod.rs — Buffer:2166,
 write_proof / read_proof). Layout follows the reference's conventions: u64
 LE field elements, a u8 sibling count before each Merkle proof, every other
-shape taken from CommonCircuitData. Digests are 4 field elements (the
-Poseidon and Poseidon2 configs)."""
+shape taken from CommonCircuitData. A digest is written as
+GenericHashOut::to_bytes: 4 LE field elements, or the raw `hash_size` bytes
+of a byte digest (Keccak's 25), in caps, Merkle paths and FRI commit caps;
+the reader takes the shape of a digest from the config's hasher."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from ..field import reference as ref
 from ..fri.proof import (
     FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep,
 )
+from ..hash.hashers import digest_to_bytes
 from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 
 
@@ -39,9 +42,12 @@ class Buffer:
             self.write_field(int(x[0]))
             self.write_field(int(x[1]))
 
+    def write_hash(self, h):
+        self._w.write(digest_to_bytes(h))
+
     def write_cap(self, cap):
         for h in cap:
-            self.write_field_vec(h)
+            self.write_hash(h)
 
     def bytes(self) -> bytes:
         return self._w.getvalue()
@@ -59,8 +65,28 @@ class Buffer:
     def read_ext_vec(self, n) -> list:
         return [(self.read_field(), self.read_field()) for _ in range(n)]
 
-    def read_cap(self, cap_height: int) -> list:
-        return [tuple(self.read_field_vec(4)) for _ in range(1 << cap_height)]
+    def read_bytes(self, n: int) -> bytes:
+        data = self._r.read(n)
+        if len(data) != n:
+            raise ValueError(f"proof bytes end {n - len(data)} bytes early")
+        return data
+
+    def read_hash(self, hasher):
+        if not hasher.algebraic:
+            return self.read_bytes(hasher.hash_size)
+        return tuple(self.read_field_vec(4))
+
+    def read_cap(self, cap_height: int, hasher) -> list:
+        return [self.read_hash(hasher) for _ in range(1 << cap_height)]
+
+    def read_merkle_proof(self, hasher) -> np.ndarray:
+        """u8 sibling count, then the siblings: [k, digest_width] rows."""
+        k = self.read_u8()
+        if not hasher.algebraic:
+            return np.frombuffer(self.read_bytes(k * hasher.hash_size),
+                                 dtype=np.uint8).reshape(k, hasher.hash_size)
+        return np.asarray(self.read_field_vec(4 * k),
+                          dtype=np.uint64).reshape(k, 4)
 
 
 def serialize_proof_with_pis(pwp: ProofWithPublicInputs, common) -> bytes:
@@ -80,10 +106,11 @@ def serialize_proof_with_pis(pwp: ProofWithPublicInputs, common) -> bytes:
 
 def deserialize_proof_with_pis(data: bytes, common) -> ProofWithPublicInputs:
     buf = Buffer(data)
+    hasher = common.gc.hasher
     ch = common.config.fri_config.cap_height
-    wires_cap = buf.read_cap(ch)
-    zs_pp_cap = buf.read_cap(ch)
-    quotient_cap = buf.read_cap(ch)
+    wires_cap = buf.read_cap(ch, hasher)
+    zs_pp_cap = buf.read_cap(ch, hasher)
+    quotient_cap = buf.read_cap(ch, hasher)
     o = OpeningSet(
         constants=buf.read_ext_vec(len(common.constants_range)),
         plonk_sigmas=buf.read_ext_vec(len(common.sigmas_range)),
@@ -96,7 +123,8 @@ def deserialize_proof_with_pis(data: bytes, common) -> ProofWithPublicInputs:
     num_leaves = [common.num_preprocessed_polys, common.config.num_wires,
                   common.num_zs_partial_products_polys,
                   common.num_quotient_polys]
-    opening_proof = _read_fri_proof(buf, common.fri_params, num_leaves)
+    opening_proof = _read_fri_proof(buf, common.fri_params, num_leaves,
+                                    hasher)
     public_inputs = buf.read_field_vec(common.num_public_inputs)
     return ProofWithPublicInputs(
         proof=Proof(wires_cap=wires_cap,
@@ -129,27 +157,22 @@ def _write_fri_proof(buf: Buffer, fp: FriProof) -> None:
     buf.write_field(int(fp.pow_witness))
 
 
-def _read_fri_proof(buf: Buffer, fri_params, num_leaves_per_oracle):
+def _read_fri_proof(buf: Buffer, fri_params, num_leaves_per_oracle,
+                    hasher):
     cap_height = fri_params.config.cap_height
-    caps = [buf.read_cap(cap_height)
+    caps = [buf.read_cap(cap_height, hasher)
             for _ in fri_params.reduction_arity_bits]
-
-    def read_merkle_proof():
-        k = buf.read_u8()
-        return np.asarray(buf.read_field_vec(4 * k),
-                          dtype=np.uint64).reshape(k, 4)
-
     rounds = []
     for _ in range(fri_params.config.num_query_rounds):
         evals_proofs = []
         for n_leaves in num_leaves_per_oracle:
             evals = np.asarray(buf.read_field_vec(n_leaves), dtype=np.uint64)
-            evals_proofs.append((evals, read_merkle_proof()))
+            evals_proofs.append((evals, buf.read_merkle_proof(hasher)))
         steps = []
         for arity_bits in fri_params.reduction_arity_bits:
             evals = buf.read_ext_vec(1 << arity_bits)
-            steps.append(FriQueryStep(evals=evals,
-                                      merkle_proof=read_merkle_proof()))
+            steps.append(FriQueryStep(
+                evals=evals, merkle_proof=buf.read_merkle_proof(hasher)))
         rounds.append(FriQueryRound(
             initial_trees_proof=FriInitialTreeProof(evals_proofs=evals_proofs),
             steps=steps))

@@ -1,6 +1,6 @@
 """The port stands alone: in a subprocess where `import jax` and `import
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
-verify fib(21) on the CPU under both ported hasher configs, and check that
+verify fib(21) on the CPU under each of the four hasher configs, and check that
 no module of JAX or of the JAX package was loaded. An AST scan checks that
 no module of the port, chip_smoke.py, the port's kernel probe
 (scripts/torch_poseidon_probe.py) or its wrap profile
@@ -11,6 +11,8 @@ import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +65,12 @@ def test_port_proves_poseidon2_with_jax_blocked():
     _prove_blocked("Poseidon2GoldilocksConfig")
 
 
+@pytest.mark.parametrize("config", ["KeccakGoldilocksConfig",
+                                    "PoseidonBN128GoldilocksConfig"])
+def test_port_proves_outer_configs_with_jax_blocked(config):
+    _prove_blocked(config)
+
+
 def _imported_roots(path):
     """Top-level package of every absolute import in a Python source."""
     with open(path) as f:
@@ -106,6 +114,11 @@ RECURSION_MODULES = [
     "plonky2_tpu_torch.recursion.conditional",
     "plonky2_tpu_torch.recursion.cyclic",
 ]
+# the host hashers of the outer-proof configs
+OUTER_CONFIG_MODULES = [
+    "plonky2_tpu_torch.hash.keccak",
+    "plonky2_tpu_torch.hash.poseidon_bn128",
+]
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -121,16 +134,18 @@ print("\n".join(names))
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    """Each module of the port, the recursion's included, imports where
-    `import jax` and `import plonky2_tpu` fail."""
+    """Each module of the port, the recursion's and the outer configs'
+    hashers included, imports where `import jax` and `import plonky2_tpu`
+    fail."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
-    assert set(RECURSION_MODULES) <= set(names)
+    listed = RECURSION_MODULES + OUTER_CONFIG_MODULES
+    assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
              for n in ns if n.endswith(".py")}
-    assert {m.replace(".", "/") + ".py" for m in RECURSION_MODULES} <= files
+    assert {m.replace(".", "/") + ".py" for m in listed} <= files
