@@ -58,8 +58,28 @@ Phases, each of which raises on failure:
      proved, the outer circuit verifying one of them by a boolean built,
      proved with condition 1 and 0, both verified and tampered;
   9. dummy-2^14-poseidon2: phase 5 under Poseidon2;
+  9a. schnorr-ecgfp5: the reference's in-circuit Schnorr verification over
+     EcGFp5 (tests/gadget_circuits.py `schnorr`: tests/test_schnorr_circuit.py's
+     signed message from random.Random(97), standard_recursion_config(),
+     seed 1234; 2^12, 13 gate types) built, proved cold and three times
+     warm, verified and tampered, its cold proof's bytes to chiprun_out/,
+     each gate type's evaluation over round 3's grid timed beside round 3
+     (9b too); the same circuit over a signature with s + 1 must make no
+     witness;
+  9b. secp256k1-curve: tests/test_curve_gadgets.py's add/double circuit
+     (standard_ecc_config(), 136 wires, 2^10, all five u32 gates) proved
+     cold and once warm, verified, tampered, add, double and neg in its
+     witness equal to the native curve's, its bytes to chiprun_out/;
+  9c. lookups: tests/test_lookup.py's test_two_luts circuit proved once,
+     verified, tampered, its public inputs the test's, its bytes to
+     chiprun_out/ (scripts/jax_verify_gadget_proofs.py verifies the three
+     with the JAX package);
+  9d. gates on the card: round 3's evaluation of every new gate the
+     gadget phases laid out (the u32 gates, MulGFp5Gate, LookupGate) and of
+     LookupTableGate, both interpolation gates and PoseidonMdsGate over
+     2^13 random rows on the card, bit-equal to the CPU;
   10. every kernel against its plain PyTorch version on the card, over full
-     outputs, at every shape phases 3 and 5-9 launched it at (tolerance:
+     outputs, at every shape phases 3, 5-9 and 9a-9c launched it at (tolerance:
      bit-exact), with its device time, its wrapper's time, the plain
      version's time, its bound and its device ms per warm prove;
   11. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
@@ -81,8 +101,8 @@ Phases, each of which raises on failure:
      sponge states (48 through K2, 24 through K6), each witness checked on
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
-The kernel counts are set to 0 just before each of phases 3 and 5-9 (6a's
-three drives included) and
+The kernel counts are set to 0 just before each of phases 3, 5-9 and 9a-9c
+(6a's three drives included) and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -364,6 +384,9 @@ def _host_hashing(seconds: dict):
                 delattr(hasher, name)
 
 
+STEP_SECONDS = {}  # drive name -> the step seconds of each of its proves
+
+
 def _drive(name: str, device, build, kernels: tuple,
            proves: int = 1 + WARM_PROVES):
     """Build one circuit, prove it `proves` times (a cold prove, then warm
@@ -413,6 +436,7 @@ def _drive(name: str, device, build, kernels: tuple,
             times.append(time.perf_counter() - t0)
             marks.append(dict(host_s))
 
+    STEP_SECONDS[name] = step_s
     warm = {k.name: {s: n - before[k.name].get(s, 0)
                      for s, n in k.shapes.items()
                      if n > before[k.name].get(s, 0)}
@@ -824,6 +848,177 @@ def dummy_2_14_poseidon2(device):
     from plonky2_tpu_torch.hash.hashers import CONFIGS
     return _drive("dummy-2^14-poseidon2", device,
                   _dummy_build(CONFIGS[P2], device), POSEIDON2_PATH)[0]
+
+
+# the package tests/gadget_circuits.py builds the gadget phases' circuits
+# with (it imports only the package it is given)
+PORT = "plonky2_tpu_torch"
+# the degree and gate types of the reference's in-circuit Schnorr
+# verification (3,231 rows before padding)
+SCHNORR_DEGREE_BITS = 12
+SCHNORR_GATE_TYPES = 13
+U32_GATES = ("U32ArithmeticGate", "U32AddManyGate", "U32SubtractionGate",
+             "ComparisonGate", "U32RangeCheckGate")
+
+
+def _round3_by_gate(name: str, common, device) -> None:
+    """Each gate type's `eval_unfiltered_rows` alone over a grid of round
+    3's size (degree x 8 points) of random rows on the card, beside the
+    median round 3 of the drive's warm proves: the gates' shares of it."""
+    from plonky2_tpu_torch.field import goldilocks as gl
+    rng = np.random.default_rng(3)
+    n = common.degree << (common.quotient_degree_factor - 1).bit_length()
+    nc = common.num_constants - common.selectors_info.num_selectors
+    args = [gl.from_u64(rng.integers(0, P, size=(k, n), dtype=np.uint64),
+                        device) for k in (nc, common.config.num_wires, 4)]
+    round3 = statistics.median(s["round 3"] for s in
+                               STEP_SECONDS[name][1:])
+    parts = []
+    for g in common.gates:
+        _, ms = _timed_ms(lambda: g.eval_unfiltered_rows(*args))
+        parts.append((ms, g.id()))
+    log(f"{name}: round 3 by gate over {n} rows (eval_unfiltered_rows "
+        f"alone; warm round 3 median {round3:.3f} s): "
+        + "; ".join(f"{gid} {ms:.1f} ms {ms / 1e3 / round3:.1%}"
+                    for ms, gid in sorted(parts, reverse=True)))
+    del args
+    torch.cuda.empty_cache()
+
+
+@phase("schnorr-ecgfp5")
+def schnorr_ecgfp5(device):
+    """The reference's in-circuit Schnorr verification over EcGFp5
+    (ecgfp5/gadgets/schnorr.rs:82-105) at its full size: built, proved cold
+    and WARM_PROVES times warm, verified and tampered; its cold proof's
+    bytes go to chiprun_out/; the same circuit over a signature with s + 1
+    must make no witness."""
+    import gadget_circuits as circuits
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+
+    def build():
+        builder, pw = circuits.schnorr(PORT)
+        return builder.build(device=device), lambda proofs: pw
+    run, data, (proof, *_) = _drive("schnorr-ecgfp5", device, build,
+                                    POSEIDON_PATH)
+    common = data.common
+    if (common.degree_bits, len(common.gates)) != (SCHNORR_DEGREE_BITS,
+                                                   SCHNORR_GATE_TYPES):
+        raise AssertionError(f"schnorr-ecgfp5: degree 2^{common.degree_bits}"
+                             f" and {len(common.gates)} gate types")
+    _write_proof("schnorr_ecgfp5_proof.bin", data, proof)
+    _round3_by_gate("schnorr-ecgfp5", common, device)
+    builder, pw = circuits.schnorr(PORT, tamper=True)
+    t0 = time.perf_counter()
+    host = builder.build_host()
+    try:
+        generate_partial_witness(pw, host, host.common)
+    except AssertionError as e:
+        log(f"schnorr-ecgfp5: the signature with s + 1 makes no witness "
+            f"(build_host + fixpoint {time.perf_counter() - t0:.3f} s: "
+            f"{str(e)[:160]})")
+    else:
+        raise AssertionError("schnorr-ecgfp5: a signature with s + 1 made a "
+                             "witness")
+    return run, common.gates
+
+
+@phase("secp256k1-curve")
+def secp256k1_curve(device):
+    """tests/test_curve_gadgets.py's add/double circuit over secp256k1 under
+    standard_ecc_config() (136 wires, all five u32 gates): built, proved
+    cold and once warm, verified and tampered; add, double and neg in the
+    witness equal the native curve's; the cold proof's bytes go to
+    chiprun_out/."""
+    import gadget_circuits as circuits
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    made = {}
+
+    def build():
+        builder, made["pw"], made["points"] = circuits.secp256k1_curve(PORT)
+        return builder.build(device=device), lambda proofs: made["pw"]
+    run, data, (proof, *_) = _drive("secp256k1-curve", device, build,
+                                    POSEIDON_PATH, proves=2)
+    kinds = {g.id().split(" ")[0] for g in data.common.gates}
+    if not set(U32_GATES) <= kinds or data.common.config.num_wires != 136:
+        raise AssertionError(f"secp256k1-curve: gate types {sorted(kinds)}, "
+                             f"{data.common.config.num_wires} wires")
+    witness = generate_partial_witness(made["pw"], data.prover_only,
+                                       data.common)
+    for name, (t, want) in made["points"].items():
+        if circuits.point_value(PORT, witness, t) != want:
+            raise AssertionError(f"secp256k1-curve: {name} differs from the "
+                                 f"native curve")
+    log("secp256k1-curve: add, double and neg equal the native curve's; "
+        f"the five u32 gate types among {len(kinds)}")
+    _write_proof("secp256k1_curve_proof.bin", data, proof)
+    _round3_by_gate("secp256k1-curve", data.common, device)
+    return run, data.common.gates
+
+
+@phase("lookups")
+def lookups(device):
+    """tests/test_lookup.py's test_two_luts circuit: built, proved once,
+    verified, tampered; its public inputs are the test's."""
+    import gadget_circuits as circuits
+    made = {}
+
+    def build():
+        builder, pw, made["want"] = circuits.two_luts(PORT)
+        return builder.build(device=device), lambda proofs: pw
+    run, data, (proof, *_) = _drive("lookups", device, build, POSEIDON_PATH,
+                                    proves=1)
+    if proof.public_inputs != made["want"]:
+        raise AssertionError(f"lookups: public inputs {proof.public_inputs},"
+                             f" want {made['want']}")
+    log(f"lookups: public inputs {proof.public_inputs} as the test's")
+    _write_proof("lookups_proof.bin", data, proof)
+    return run, data.common.gates
+
+
+# rows of the gates-on-the-card check
+GATE_ROWS = 1 << 13
+NEW_GATES = U32_GATES + ("MulGFp5Gate", "LookupGate")
+
+
+@phase("gates on the card")
+def gates_on_card(device, laid_out):
+    """Round 3's evaluation of each new gate (`eval_unfiltered_rows`, the
+    generic `eval_unfiltered` on GFAlgebra) over GATE_ROWS rows of random
+    canonical wires, constants and public-input hash on the card, bit-equal
+    to the same call on the CPU: every new gate the gadget phases laid out,
+    and the ones no path lays out (LookupTableGate, the two interpolation
+    gates, PoseidonMdsGate)."""
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.gates.interpolation_gates import (
+        HighDegreeInterpolationGate, LowDegreeInterpolationGate,
+    )
+    from plonky2_tpu_torch.gates.lookup_gates import LookupTableGate
+    from plonky2_tpu_torch.gates.misc_gates import PoseidonMdsGate
+
+    gates = {g.id(): g for g in laid_out
+             if g.id().split(" ")[0] in NEW_GATES}
+    lut = next(g.lut for g in gates.values() if g.id().startswith("Lookup"))
+    for g in (LookupTableGate(26, lut, 0), HighDegreeInterpolationGate(2),
+              LowDegreeInterpolationGate(2), PoseidonMdsGate()):
+        gates[g.id()] = g
+    rng = np.random.default_rng(9)
+    for gate_id, g in sorted(gates.items()):
+        arrays = [rng.integers(0, P, size=(n, GATE_ROWS), dtype=np.uint64)
+                  for n in (2, g.num_wires(), 4)]
+        args = [gl.from_u64(a, device) for a in arrays]
+        got, ms = _timed_ms(lambda: g.eval_unfiltered_rows(*args))
+        t0 = time.perf_counter()
+        want = g.eval_unfiltered_rows(*(gl.from_u64(a, "cpu")
+                                        for a in arrays))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if got.shape != (g.num_constraints(), GATE_ROWS) or \
+                not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{gate_id}: the card's round-3 evaluation "
+                                 f"differs from the CPU's")
+        log(f"{gate_id}: {g.num_constraints()} constraints over "
+            f"{GATE_ROWS} rows bit-equal to the CPU; card {ms:.3f} ms, CPU "
+            f"{cpu_ms:.3f} ms")
+    log(f"gates on the card: {len(gates)} gates checked")
 
 
 def _wrapper_ms(fn, reps: int) -> float:
@@ -1251,7 +1446,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     from plonky2_tpu_torch import backend
 
     t_start = time.perf_counter()
@@ -1286,6 +1481,13 @@ def main() -> int:
     runs["cyclic-ivc"] = cyclic_ivc(device)
     runs["conditional"] = conditional(device)
     runs["dummy-2^14-poseidon2"] = dummy_2_14_poseidon2(device)
+    laid_out = []
+    for name, fn in (("schnorr-ecgfp5", schnorr_ecgfp5),
+                     ("secp256k1-curve", secp256k1_curve),
+                     ("lookups", lookups)):
+        runs[name], gates = fn(device)
+        laid_out += gates
+    gates_on_card(device, laid_out)
     table = kernels_vs_plain(device, runs, clock)
     k1_past_2_19(device, table, clock)
     edge_batches(device, table)

@@ -8,8 +8,9 @@ returns the port's CircuitData on `device`. Nothing here imports JAX or the
 JAX package: the caller does the JAX -> numpy step (GF.to_u64(),
 MerkleTree.leaves_host(), ...), and the JAX objects are read by attribute
 and rebuilt as the port's own: the config, FRI parameters and selectors
-field by field, the gates from their ids, the hasher config from its name,
-the generators from their class name and fields. Targets are plain tuples
+field by field, the gates from their ids (a lookup gate's table from the
+gate), the hasher config from its name, the generators from their class
+name and fields (BigUint and nonnative targets rebuilt as the port's). Targets are plain tuples
 in both packages.
 """
 
@@ -19,11 +20,27 @@ import re
 
 import numpy as np
 
+from .ecdsa.biguint import BigUintTarget, _BigUintDivRemGenerator
+from .ecdsa.curve_gadgets import _GlvDecompositionGenerator
+from .ecdsa.nonnative import (
+    NonNativeTarget, _NonNativeAdditionGenerator, _NonNativeInverseGenerator,
+    _NonNativeMultiplicationGenerator, _NonNativeSubtractionGenerator,
+)
+from .ecgfp5.gadgets import (
+    MulGFp5Gate, _MulGFp5Generator, _QuinticQuotientGenerator,
+)
 from .field import goldilocks as gl
 from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
 from .gadgets.extension import _ExtInverseGenerator
 from .gadgets.misc import _BaseSumGenerator, _EqualityGenerator
+from .gadgets.u32 import (
+    ComparisonGate, U32AddManyGate, U32ArithmeticGate, U32RangeCheckGate,
+    U32SubtractionGate, _ComparisonGenerator, _U32AddManyGenerator,
+    _U32ArithmeticGenerator, _U32RangeCheckGenerator,
+    _U32SubtractionGenerator,
+)
+from .gates import interpolation_gates
 from .gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
     _ArithmeticOpGenerator,
@@ -36,9 +53,14 @@ from .gates.extension_gates import (
     ReducingGate, _ArithmeticExtOpGenerator, _MulExtOpGenerator,
     _ReducingExtGenerator, _ReducingGenerator,
 )
+from .gates.interpolation_gates import (
+    HighDegreeInterpolationGate, LowDegreeInterpolationGate,
+)
+from .gates.lookup_gates import LookupGate, LookupTableGate, _LookupGenerator
 from .gates.misc_gates import (
-    BaseSplitGenerator, BaseSumGate, ExponentiationGate, RandomAccessGate,
-    _ExponentiationGenerator, _RandomAccessGenerator,
+    BaseSplitGenerator, BaseSumGate, ExponentiationGate, PoseidonMdsGate,
+    RandomAccessGate, _ExponentiationGenerator, _PoseidonMdsGenerator,
+    _RandomAccessGenerator,
 )
 from .gates.poseidon_gate import PoseidonGate, PoseidonGenerator
 from .hash.hashers import CONFIGS
@@ -66,13 +88,21 @@ _GATES = {
     "ExponentiationGate": ExponentiationGate,
     "RandomAccessGate": RandomAccessGate,       # bits, copies, extra consts
     "CosetInterpolationGate": CosetInterpolationGate.with_degree,
+    "U32ArithmeticGate": U32ArithmeticGate,     # num_ops
+    "U32AddManyGate": U32AddManyGate,           # num_addends, num_ops
+    "U32SubtractionGate": U32SubtractionGate,
+    "ComparisonGate": ComparisonGate,           # num_bits, num_chunks
+    "U32RangeCheckGate": U32RangeCheckGate,
+    "MulGFp5Gate": MulGFp5Gate,
+    "HighDegreeInterpolationGate": HighDegreeInterpolationGate,
+    "LowDegreeInterpolationGate": LowDegreeInterpolationGate,
 }
 
 
 def gate_from_id(gate_id: str):
     """The port's gate for a gate id of the JAX package."""
     fixed = {g.id(): g for g in (NoopGate(), PublicInputGate(),
-                                 PoseidonGate())}
+                                 PoseidonGate(), PoseidonMdsGate())}
     if gate_id in fixed:
         return fixed[gate_id]
     name = gate_id.split(" ", 1)[0]
@@ -85,10 +115,76 @@ def gate_from_id(gate_id: str):
     return gate
 
 
-def _target(t):
-    """A target of the JAX package: its tuple, an ExtTarget stays one."""
-    return ExtTarget(*map(tuple, t)) if type(t).__name__ == "ExtTarget" \
-        else tuple(t)
+def gate_from(g):
+    """The port's gate for a gate of the JAX package. A lookup gate's id
+    holds only a hash of its table, so the table comes from the gate."""
+    if type(g).__name__ == "LookupGate":
+        gate = LookupGate(g.num_ops(), _lut(g.lut))
+    elif type(g).__name__ == "LookupTableGate":
+        gate = LookupTableGate(g.num_wires() // 3, _lut(g.lut),
+                               g.last_lut_row)
+    else:
+        return gate_from_id(g.id())
+    if gate.id() != g.id():
+        raise NotImplementedError(f"gate not ported: {g.id()}")
+    return gate
+
+
+def _lut(pairs) -> tuple:
+    """A table as a tuple of pairs of python ints (its hash is in the id)."""
+    return tuple((int(a), int(b)) for a, b in pairs)
+
+
+def _value(v):
+    """A generator's field of the JAX package: a target stays its tuple (an
+    ExtTarget stays one), BigUint and nonnative targets become the port's,
+    lists and tuples of them convert element-wise, ints stay ints."""
+    kind = type(v).__name__
+    if kind == "ExtTarget":
+        return ExtTarget(*map(tuple, v))
+    if kind == "BigUintTarget":
+        return BigUintTarget(_value(v.limbs))
+    if kind == "NonNativeTarget":
+        return NonNativeTarget(_value(v.value), int(v.modulus))
+    if isinstance(v, list):
+        return [_value(x) for x in v]
+    if isinstance(v, tuple):
+        return v if v and isinstance(v[0], str) else \
+            tuple(_value(x) for x in v)
+    return int(v)
+
+
+# generator name -> (the port's class, its fields in constructor order)
+_BY_FIELDS = {
+    "_InverseGenerator": (_InverseGenerator, ("x", "x_inv")),
+    "_ExtInverseGenerator": (_ExtInverseGenerator, ("x", "x_inv")),
+    "_EqualityGenerator": (_EqualityGenerator, ("x", "y", "equal", "inv")),
+    "_BaseSumGenerator": (_BaseSumGenerator, ("bits", "sum_target")),
+    "_BigUintDivRemGenerator": (_BigUintDivRemGenerator,
+                                ("a", "b", "div", "rem")),
+    "_NonNativeAdditionGenerator": (_NonNativeAdditionGenerator,
+                                    ("a", "b", "sum", "overflow")),
+    "_NonNativeSubtractionGenerator": (_NonNativeSubtractionGenerator,
+                                       ("a", "b", "diff", "overflow")),
+    "_NonNativeMultiplicationGenerator": (_NonNativeMultiplicationGenerator,
+                                          ("a", "b", "prod", "overflow")),
+    "_NonNativeInverseGenerator": (_NonNativeInverseGenerator,
+                                   ("x", "inv", "div")),
+    "_GlvDecompositionGenerator": (_GlvDecompositionGenerator,
+                                   ("k", "k1", "k2", "k1_neg", "k2_neg")),
+    "_QuinticQuotientGenerator": (_QuinticQuotientGenerator,
+                                  ("a", "b", "quotient")),
+}
+# generators of one op of a batched gate: (row, gate, op index)
+_BY_OP = {"_U32ArithmeticGenerator": _U32ArithmeticGenerator,
+          "_U32AddManyGenerator": _U32AddManyGenerator,
+          "_U32SubtractionGenerator": _U32SubtractionGenerator}
+# generators of a whole row: (row, gate)
+_BY_GATE = {"_ReducingExtGenerator": _ReducingExtGenerator,
+            "_ReducingGenerator": _ReducingGenerator,
+            "_ExponentiationGenerator": _ExponentiationGenerator,
+            "_ComparisonGenerator": _ComparisonGenerator,
+            "_U32RangeCheckGenerator": _U32RangeCheckGenerator}
 
 
 def generator_from(g):
@@ -103,6 +199,8 @@ def generator_from(g):
         return _ArithmeticOpGenerator(g.row, g.i, int(g.c0), int(g.c1))
     if kind == "PoseidonGenerator":
         return PoseidonGenerator(g.row)
+    if kind == "_PoseidonMdsGenerator":
+        return _PoseidonMdsGenerator(g.row)
     if kind == "_ArithmeticExtOpGenerator":
         return _ArithmeticExtOpGenerator(g.row, g.i, int(g.c0), int(g.c1))
     if kind == "_MulExtOpGenerator":
@@ -110,31 +208,31 @@ def generator_from(g):
     if kind == "BaseSplitGenerator":
         return BaseSplitGenerator(g.row, g.num_limbs, g.base)
     if kind == "_RandomAccessGenerator":
-        return _RandomAccessGenerator(g.row, gate_from_id(g.gate.id()),
-                                      g.copy)
-    by_gate = {"_ReducingExtGenerator": _ReducingExtGenerator,
-               "_ReducingGenerator": _ReducingGenerator,
-               "_ExponentiationGenerator": _ExponentiationGenerator,
-               "_InterpolationGenerator": _InterpolationGenerator}
-    if kind in by_gate:
-        return by_gate[kind](g.row, gate_from_id(g.gate.id()))
-    by_targets = {"_InverseGenerator": (_InverseGenerator, ("x", "x_inv")),
-                  "_ExtInverseGenerator": (_ExtInverseGenerator,
-                                           ("x", "x_inv")),
-                  "_EqualityGenerator": (_EqualityGenerator,
-                                         ("x", "y", "equal", "inv"))}
-    if kind in by_targets:
-        cls, fields = by_targets[kind]
-        return cls(*(_target(getattr(g, f)) for f in fields))
+        return _RandomAccessGenerator(g.row, gate_from(g.gate), g.copy)
+    if kind == "_MulGFp5Generator":
+        return _MulGFp5Generator(g.row, gate_from(g.gate), g.i, int(g.c))
+    if kind == "_LookupGenerator":
+        return _LookupGenerator(g.row, g.slot,
+                                {int(a): int(b) for a, b in g.table.items()})
+    if kind == "_InterpolationGenerator" and hasattr(g, "low_degree"):
+        # the legacy interpolation gates' (interpolation_gates.py)
+        return interpolation_gates._InterpolationGenerator(
+            g.row, gate_from(g.gate), g.low_degree)
+    if kind == "_InterpolationGenerator":
+        return _InterpolationGenerator(g.row, gate_from(g.gate))
+    if kind in _BY_OP:
+        return _BY_OP[kind](g.row, gate_from(g.gate), g.i)
+    if kind in _BY_GATE:
+        return _BY_GATE[kind](g.row, gate_from(g.gate))
+    if kind in _BY_FIELDS:
+        cls, fields = _BY_FIELDS[kind]
+        return cls(*(_value(getattr(g, f)) for f in fields))
     if kind == "DummyProofGenerator":
         # it holds a proof made by the JAX package at build time
         raise NotImplementedError(
             "generator not ported: DummyProofGenerator (a JAX-built cyclic "
             "or dummy-verifying circuit carries a JAX proof; build the "
             "circuit with the port instead)")
-    if kind == "_BaseSumGenerator":
-        return _BaseSumGenerator([tuple(b) for b in g.bits],
-                                 tuple(g.sum_target))
     raise NotImplementedError(f"generator not ported: {kind}")
 
 
@@ -168,7 +266,7 @@ def common_from(common) -> CommonCircuitData:
                              degree_bits=fp.degree_bits,
                              reduction_arity_bits=tuple(
                                  fp.reduction_arity_bits)),
-        gates=[gate_from_id(g.id()) for g in common.gates],
+        gates=[gate_from(g) for g in common.gates],
         selectors_info=SelectorsInfo(
             selector_indices=list(si.selector_indices),
             groups=[range(g.start, g.stop) for g in si.groups]),

@@ -102,3 +102,66 @@ def ext2_exp(a, e: int):
         base = ext2_mul(base, base)
         e >>= 1
     return result
+
+
+# ---------------------------------------------------------------------------
+# Quintic extension F[X]/(X^5 - 3), the base field of EcGFp5 (reference:
+# field/src/extension/quintic.rs, goldilocks_extensions.rs:40-93): elements
+# are 5-tuples of python ints, written generically over D = len(a).
+# ---------------------------------------------------------------------------
+
+EXT5_W = 3
+EXT5_DTH_ROOT = 1041288259238279555
+
+
+def extn_add(a, b):
+    return tuple(add(x, y) for x, y in zip(a, b))
+
+
+def extn_sub(a, b):
+    return tuple(sub(x, y) for x, y in zip(a, b))
+
+
+def extn_neg(a):
+    return tuple(neg(x) for x in a)
+
+
+def extn_scalar_mul(a, s: int):
+    return tuple(mul(x, s) for x in a)
+
+
+def extn_mul(a, b, w: int):
+    """c_k = sum_{i+j=k} a_i b_j + W sum_{i+j=k+D} a_i b_j."""
+    d = len(a)
+    c = [0] * d
+    for i, ai in enumerate(a):
+        for j, bj in enumerate(b):
+            t = mul(ai, bj)
+            if i + j < d:
+                c[i + j] = add(c[i + j], t)
+            else:
+                c[i + j - d] = add(c[i + j - d], mul(w, t))
+    return tuple(c)
+
+
+def extn_frobenius(a, dth_root: int, count: int = 1):
+    """a -> a^(p^count): coefficient i times DTH_ROOT^(i*count)
+    (reference: extension/mod.rs:29-60 repeated_frobenius)."""
+    z0 = exp(dth_root, count % len(a))
+    z = 1
+    out = []
+    for x in a:
+        out.append(mul(x, z))
+        z = mul(z, z0)
+    return tuple(out)
+
+
+def extn_inverse(a, w: int, dth_root: int):
+    """a^-1 = (prod_{k=1..D-1} a^(p^k)) / N(a), N(a) the product of all
+    conjugates, which lies in the base field."""
+    acc = extn_frobenius(a, dth_root, 1)
+    for k in range(2, len(a)):
+        acc = extn_mul(acc, extn_frobenius(a, dth_root, k), w)
+    norm = extn_mul(a, acc, w)
+    assert all(x == 0 for x in norm[1:]), "norm not in base field"
+    return extn_scalar_mul(acc, inverse(norm[0]))

@@ -1,14 +1,18 @@
-"""BaseSum, Exponentiation, RandomAccess gates.
+"""BaseSum, Exponentiation, RandomAccess, PoseidonMds gates.
 
 Reference: plonky2/src/gates/base_sum.rs:29-280, exponentiation.rs:46-273,
-random_access.rs:34-421.
+random_access.rs:34-421, poseidon_mds.rs:36-265.
 """
 
 from __future__ import annotations
 
 from ..field import reference as ref
+from ..hash.poseidon_constants import (
+    MDS_MATRIX_CIRC, MDS_MATRIX_DIAG, SPONGE_WIDTH,
+)
 from ..iop.generator import SimpleGenerator
 from ..iop.target import wire
+from .ext_algebra import ext_add, ext_scalar_mul_const, ext_sub
 from .gate import Gate
 
 D = 2
@@ -283,3 +287,68 @@ class _RandomAccessGenerator(SimpleGenerator):
                     witness.get(wire(self.row, g.wire_list_item(idx, c)))))
         for i in range(g.bits):
             out.append((wire(self.row, g.wire_bit(i, c)), (idx >> i) & 1))
+
+
+class PoseidonMdsGate(Gate):
+    """One MDS layer over 12 extension inputs (reference: poseidon_mds.rs)."""
+
+    def id(self):
+        return "PoseidonMdsGate(PhantomData<plonky2_field::goldilocks_field::GoldilocksField>)<WIDTH=12>"
+
+    @staticmethod
+    def wires_input(i):
+        return range(i * D, (i + 1) * D)
+
+    @staticmethod
+    def wires_output(i):
+        return range((SPONGE_WIDTH + i) * D, (SPONGE_WIDTH + i + 1) * D)
+
+    def num_wires(self):
+        return 2 * D * SPONGE_WIDTH
+
+    def degree(self):
+        return 1
+
+    def num_constraints(self):
+        return SPONGE_WIDTH * D
+
+    def eval_unfiltered(self, alg, consts, wires, pi_hash):
+        ins = [tuple(wires[w] for w in self.wires_input(i))
+               for i in range(SPONGE_WIDTH)]
+        out = []
+        for r in range(SPONGE_WIDTH):
+            acc = ext_scalar_mul_const(alg, ins[r], MDS_MATRIX_DIAG[r]) \
+                if MDS_MATRIX_DIAG[r] else None
+            for i in range(SPONGE_WIDTH):
+                term = ext_scalar_mul_const(alg, ins[(i + r) % SPONGE_WIDTH],
+                                            MDS_MATRIX_CIRC[i])
+                acc = term if acc is None else ext_add(alg, acc, term)
+            output = tuple(wires[w] for w in self.wires_output(r))
+            out.extend(ext_sub(alg, acc, output))
+        return out
+
+    def generators(self, row, local_constants):
+        return [_PoseidonMdsGenerator(row)]
+
+
+class _PoseidonMdsGenerator(SimpleGenerator):
+    def __init__(self, row):
+        self.row = row
+
+    def dependencies(self):
+        return [wire(self.row, w) for i in range(SPONGE_WIDTH)
+                for w in PoseidonMdsGate.wires_input(i)]
+
+    def run_once(self, witness, out):
+        g = PoseidonMdsGate
+        ins = [tuple(witness.get(wire(self.row, w)) for w in g.wires_input(i))
+               for i in range(SPONGE_WIDTH)]
+        for r in range(SPONGE_WIDTH):
+            acc = (0, 0)
+            for i in range(SPONGE_WIDTH):
+                acc = ref.ext2_add(acc, ref.ext2_scalar_mul(
+                    ins[(i + r) % SPONGE_WIDTH], MDS_MATRIX_CIRC[i]))
+            acc = ref.ext2_add(acc, ref.ext2_scalar_mul(ins[r],
+                                                        MDS_MATRIX_DIAG[r]))
+            for w, v in zip(g.wires_output(r), acc):
+                out.append((wire(self.row, w), v))

@@ -1,9 +1,10 @@
 """CircuitBuilder — the builder core (reference: plonk/circuit_builder.rs —
 add_gate:445, connect:516, find_slot:786, blind_and_pad:884,
 build:1045-1265) for non-ZK circuits: virtual targets, public inputs,
-connect, constants, arithmetic, the hashing gadgets, the extension and misc
-gadget mixins the recursive verifier uses, the verifier data of a cyclic
-circuit, padding and `build()`.
+connect, constants, arithmetic, the hashing gadgets, the gadget mixins
+(extension and misc for the recursive verifier; u32, lookups, BigUint,
+nonnative, secp256k1 curve and EcGFp5 for the application crates), the
+verifier data of a cyclic circuit, padding and `build()`.
 
 `build()` runs in two steps: `build_host()` lays out the rows, constants,
 selectors and sigmas, the representative map and the generators on the
@@ -21,15 +22,21 @@ import dataclasses
 
 import numpy as np
 
+from ..ecdsa.biguint import BigUintGadgets
+from ..ecdsa.curve_gadgets import CurveGadgets
+from ..ecdsa.nonnative import NonNativeGadgets
+from ..ecgfp5.gadgets import Gfp5Gadgets
 from ..field import goldilocks as gl
 from ..field import reference as ref
 from ..fri.oracle import PolynomialBatch
 from ..gadgets.extension import ExtensionGadgets
 from ..gadgets.misc import MiscGadgets
+from ..gadgets.u32 import U32Gadgets
 from ..gates.basic_gates import (
     ArithmeticGate, ConstantGate, NoopGate, PublicInputGate,
 )
 from ..gates.gate import UNUSED_SELECTOR, Gate
+from ..gates.lookup_gates import LookupGadgets
 from ..gates.poseidon_gate import PoseidonGate
 from ..hash.hashers import PoseidonGoldilocksConfig, digest_to_elements
 from ..hash.sponge import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
@@ -56,7 +63,9 @@ class HostCircuit:
     public_inputs: list
 
 
-class CircuitBuilder(ExtensionGadgets, MiscGadgets):
+class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
+                     LookupGadgets, BigUintGadgets, NonNativeGadgets,
+                     CurveGadgets, Gfp5Gadgets):
     def __init__(self, config: CircuitConfig | None = None,
                  seed: int | None = None):
         self.config = config or CircuitConfig.standard_recursion_config()

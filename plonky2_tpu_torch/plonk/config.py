@@ -1,4 +1,4 @@
-"""Circuit configuration (reference: plonky2/src/plonk/circuit_data.rs:59-116)."""
+"""Circuit configuration (reference: plonky2/src/plonk/circuit_data.rs:59-130)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,16 @@ class CircuitConfig:
                     kind="constant_arity", arity_bits=4, final_poly_bits=5),
                 num_query_rounds=28,
             ))
+
+    @staticmethod
+    def standard_ecc_config() -> "CircuitConfig":
+        """136 wires for the u32 range-check gates of the ecdsa gadgets
+        (reference: circuit_data.rs:118-123)."""
+        return dataclasses.replace(CircuitConfig.standard_recursion_config(),
+                                   num_wires=136)
+
+    @staticmethod
+    def wide_ecc_config() -> "CircuitConfig":
+        """reference: circuit_data.rs:125-130."""
+        return dataclasses.replace(CircuitConfig.standard_recursion_config(),
+                                   num_wires=234)

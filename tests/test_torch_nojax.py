@@ -2,7 +2,8 @@
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
 verify fib(21) on the CPU under each of the four hasher configs, and check that
 no module of JAX or of the JAX package was loaded. An AST scan checks that
-no module of the port, chip_smoke.py, the port's kernel probe
+no module of the port, chip_smoke.py, the gadget circuits it proves
+(tests/gadget_circuits.py), the port's kernel probe
 (scripts/torch_poseidon_probe.py) or its wrap profile
 (scripts/torch_wrap_profile.py) imports either. This is what
 lets chip_smoke.py run on a machine with no JAX."""
@@ -85,6 +86,7 @@ def _imported_roots(path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "gadget_circuits.py"),
              os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
              os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
@@ -119,6 +121,20 @@ OUTER_CONFIG_MODULES = [
     "plonky2_tpu_torch.hash.keccak",
     "plonky2_tpu_torch.hash.poseidon_bn128",
 ]
+# the gadget crates: u32, BigUint, nonnative, secp256k1, EcGFp5, lookups and
+# the last gates
+GADGET_MODULES = [
+    "plonky2_tpu_torch.gadgets.u32",
+    "plonky2_tpu_torch.ecdsa.biguint",
+    "plonky2_tpu_torch.ecdsa.nonnative",
+    "plonky2_tpu_torch.ecdsa.curve",
+    "plonky2_tpu_torch.ecdsa.curve_gadgets",
+    "plonky2_tpu_torch.ecgfp5.scalar_field",
+    "plonky2_tpu_torch.ecgfp5.curve",
+    "plonky2_tpu_torch.ecgfp5.gadgets",
+    "plonky2_tpu_torch.gates.lookup_gates",
+    "plonky2_tpu_torch.gates.interpolation_gates",
+]
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -134,16 +150,16 @@ print("\n".join(names))
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    """Each module of the port, the recursion's and the outer configs'
-    hashers included, imports where `import jax` and `import plonky2_tpu`
-    fail."""
+    """Each module of the port, the recursion's, the outer configs' hashers
+    and the gadget crates included, imports where `import jax` and `import
+    plonky2_tpu` fail."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
-    listed = RECURSION_MODULES + OUTER_CONFIG_MODULES
+    listed = RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
     assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
