@@ -23,11 +23,11 @@ Phases, each of which raises on failure:
      a flipped opening, public input and (Keccak) cap digest byte;
   5. dummy-2^14: the base proof of the reference's bench_recursion
      (dummy_circuit(standard_recursion_config(), 14, 4), public input
-     0 = 42) under Poseidon: build, prove cold and three times warm, verify,
+     0 = 42) under Poseidon: build, prove cold and twice warm, verify,
      and reject a flipped public input and a flipped opening;
   6. wrap-1 and wrap-2, the rest of bench_recursion's chain: the verifier
      circuit of the dummy-2^14 proof, then the verifier circuit of wrap-1's
-     proof, each built, proved cold and three times warm, verified and
+     proof, each built, proved cold and twice warm, verified and
      tamper-checked, with its degree, gates, build and prove seconds (the
      warm proves' median and range), the shares of the host witness
      fixpoint and of round 3 (the quotient), and the peak device memory
@@ -61,8 +61,8 @@ Phases, each of which raises on failure:
   9a. schnorr-ecgfp5: the reference's in-circuit Schnorr verification over
      EcGFp5 (tests/gadget_circuits.py `schnorr`: tests/test_schnorr_circuit.py's
      signed message from random.Random(97), standard_recursion_config(),
-     seed 1234; 2^12, 13 gate types) built, proved cold and three times
-     warm, verified and tampered, its cold proof's bytes to chiprun_out/,
+     seed 1234; 2^12, 13 gate types) built, proved cold and twice warm,
+     verified and tampered, its cold proof's bytes to chiprun_out/,
      each gate type's evaluation over round 3's grid timed beside round 3
      (9b too); the same circuit over a signature with s + 1 must make no
      witness;
@@ -78,10 +78,29 @@ Phases, each of which raises on failure:
      gadget phases laid out (the u32 gates, MulGFp5Gate, LookupGate) and of
      LookupTableGate, both interpolation gates and PoseidonMdsGate over
      2^13 random rows on the card, bit-equal to the CPU;
-  10. every kernel against its plain PyTorch version on the card, over full
-     outputs, at every shape phases 3, 5-9 and 9a-9c launched it at (tolerance:
-     bit-exact), with its device time, its wrapper's time, the plain
-     version's time, its bound and its device ms per warm prove;
+  9e. starky (tests/stark_circuits.py; StarkConfig.standard_fast_config():
+     rate 1, 84 queries, PoW 16 bits): starky-fib, the reference's
+     FibonacciStark at 2^20 rows (cold and three times warm, a result + 1
+     rejected); starky-wide, 64 Fibonacci lanes (128 columns) over 2^20
+     rows (cold and twice warm); starky-logup, PermutationStark at 2^20
+     (cold and once warm, a trace that is no permutation rejected);
+     starky-ctl, tests/test_ctl.py's two tables at 2^20 rows through
+     prove_multi and verify_multi (cold and once warm, a multiset mismatch
+     rejected); starky-recursive, the starky-fib proof verified inside a
+     plonky2 circuit (2^14) built, proved cold and three times warm,
+     verified and tampered, its public inputs the STARK's, and a STARK
+     proof with a flipped FRI opening refused by the witness fixpoint;
+     starky-poseidon2, FibonacciStark at 2^16 under Poseidon2, proved once.
+     Each logs its proves by TimingTree scope, its peak memory and
+     launches; each verifies every proof and rejects a flipped opening;
+  10. every kernel against its plain PyTorch version on the card, at every
+     shape phases 3, 5-9, 9a-9c and 9e launched it at (tolerance:
+     bit-exact), over full outputs, except where the plain version would
+     take tens of seconds: K1 above 2^25 output elements on a seeded sample
+     of its rows, a tree above 2^17 leaves on one seeded subtree of 2^17
+     leaves, a leaf hash above 2^25 elements on 2^16 seeded leaves; with
+     its device time, its wrapper's time, the plain version's time, its
+     bound and its device ms per warm prove;
   11. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
      rate 3, inverse [2, 2^20] with and without a shift and [1, 2^24],
      against the plain version over full outputs, with device ms and
@@ -101,8 +120,8 @@ Phases, each of which raises on failure:
      sponge states (48 through K2, 24 through K6), each witness checked on
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
-The kernel counts are set to 0 just before each of phases 3, 5-9 and 9a-9c
-(6a's three drives included) and
+The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c
+and 9e (6a's three drives included) and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -157,8 +176,10 @@ FIELD_MULS = {"poseidon_permute": (8 * 12 + 22) * 4,
 # a 64 x 64 -> 128-bit product takes at least four 32-bit partial products;
 # the Goldilocks reduction takes shifts and adds only
 MIN_IMAD_PER_FIELD_MUL = 4
-# warm proves of each main-path phase, after its cold one
-WARM_PROVES = 3
+# warm proves of each main-path phase, after its cold one (the PLONK
+# phases; starky-fib and starky-recursive take STARK_WARM_PROVES)
+WARM_PROVES = 2
+STARK_WARM_PROVES = 3
 
 
 def log(msg: str) -> None:
@@ -1021,6 +1042,256 @@ def gates_on_card(device, laid_out):
     log(f"gates on the card: {len(gates)} gates checked")
 
 
+STARK_ROWS = 1 << 20
+WIDE_LANES = 64
+STARK_DEGREE_BITS = 20
+P2_STARK_ROWS = 1 << 16
+
+
+def _stark_config():
+    from plonky2_tpu_torch.starky.config import StarkConfig
+    return StarkConfig.standard_fast_config()
+
+
+def _stark_drive(name: str, device, prove, verify, kernels: tuple,
+                 proves: int):
+    """Prove one STARK system `proves` times (a cold prove, then warm ones)
+    and verify every proof; the counts are set to 0 just before and read
+    just after. `prove(timing)` returns a proof, its TimingTree scopes
+    ending in a synchronize; each prove's scopes are logged. Returns ((launches,
+    shapes, warm shapes), proofs) as `_drive` does."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.utils.timing import TimingTree
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    backend.reset_counts()
+    times, proofs, scopes = [], [], []
+    for _ in range(proves):
+        before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+        timing = TimingTree(name, enabled=True,
+                            sync=lambda: torch.cuda.synchronize(device))
+        t0 = time.perf_counter()
+        proofs.append(prove(timing))
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        scopes.append(timing.seconds())
+    warm = {k.name: {s: n - before[k.name].get(s, 0)
+                     for s, n in k.shapes.items()
+                     if n > before[k.name].get(s, 0)}
+            for k in backend.KERNELS.values()}
+    launches = {k.name: k.launches for k in backend.KERNELS.values()}
+    shapes = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    for proof in proofs:
+        verify(proof)
+    t_verify = (time.perf_counter() - t0) / len(proofs)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched by the main "
+                             f"path: {missing}")
+    warm_s = (f"warm x{proves - 1} median {statistics.median(times[1:]):.3f}"
+              f" s ({min(times[1:]):.3f}-{max(times[1:]):.3f} s)"
+              if proves > 1 else "no warm prove")
+    log(f"{name}: prove cold {times[0]:.3f} s, {warm_s}, verify "
+        f"{t_verify:.3f} s, peak allocated {peak / 2**20:.1f} MiB")
+    for i, sc_ in enumerate(scopes):
+        log(f"{name}: {'cold' if i == 0 else 'warm'} prove {times[i]:.3f} s"
+            f" by scope: " + "; ".join(f"{k} {v:.3f} s"
+                                       for k, v in sc_.items()))
+    log(f"{name}: launches {launches}")
+    return (launches, shapes, warm), proofs
+
+
+def _reject(name: str, what: str, check) -> None:
+    """`check()` must raise an AssertionError."""
+    try:
+        check()
+    except AssertionError as e:
+        log(f"{name}: {what} rejected ({str(e)[:160]})")
+    else:
+        raise AssertionError(f"{name}: {what} was accepted")
+
+
+def _stark_tampered(name: str, stark, proof, config, gc=None):
+    """A flipped trace opening, then a changed last public input where the
+    constraints read the public inputs (PermutationStark's do not), must
+    fail verify_stark_proof."""
+    from plonky2_tpu_torch.starky.verifier import verify_stark_proof
+    bad = copy.deepcopy(proof)
+    v = bad.proof.openings.local_values[0]
+    bad.proof.openings.local_values[0] = ((v[0] + 1) % P, v[1])
+    out = [("flipped trace opening", bad)]
+    if type(stark).__name__ != "PermutationStark":
+        bad = copy.deepcopy(proof)
+        bad.public_inputs[-1] = (bad.public_inputs[-1] + 1) % P
+        out.append(("public input + 1", bad))
+    for what, bad in out:
+        _reject(name, what, lambda: verify_stark_proof(stark, bad, config,
+                                                       gc=gc))
+
+
+def _stark_phase(name: str, device, system, proves: int, gc=None,
+                 kernels=POSEIDON_PATH):
+    """Prove a single-table STARK `proves` times, verify, tamper."""
+    from plonky2_tpu_torch.starky.prover import prove
+    from plonky2_tpu_torch.starky.verifier import verify_stark_proof
+
+    config = _stark_config()
+    t0 = time.perf_counter()
+    stark, trace, pis = system()
+    log(f"{name}: {type(stark).__name__}, {stark.COLUMNS} columns x "
+        f"{trace.shape[1]} rows, {len(pis)} public inputs, trace made on the "
+        f"host in {time.perf_counter() - t0:.3f} s, FRI arities "
+        f"{config.fri_params(trace.shape[1].bit_length() - 1).reduction_arity_bits}")
+    run, proofs = _stark_drive(
+        name, device,
+        lambda timing: prove(stark, config, trace, pis, timing, gc=gc,
+                             device=device),
+        lambda proof: verify_stark_proof(stark, proof, config, gc=gc),
+        kernels, proves)
+    if proofs[0].public_inputs != list(pis):
+        raise AssertionError(f"{name}: public inputs differ")
+    _stark_tampered(name, stark, proofs[0], config, gc)
+    return run, stark, proofs[0]
+
+
+@phase("starky-fib")
+def starky_fib(device):
+    """The reference's FibonacciStark at 2^20 rows from (0, 1): proved cold
+    and STARK_WARM_PROVES times warm, verified, a result + 1 rejected."""
+    import stark_circuits as circuits
+    run, stark, proof = _stark_phase(
+        "starky-fib", device, lambda: circuits.fibonacci(PORT, STARK_ROWS),
+        1 + STARK_WARM_PROVES)
+    if proof.public_inputs[2] != circuits.fib(STARK_ROWS - 1, 0, 1):
+        raise AssertionError("starky-fib: the result is not fib(2^20 - 1)")
+    return run, stark, proof
+
+
+@phase("starky-wide")
+def starky_wide(device):
+    """64 Fibonacci lanes (128 columns) over 2^20 rows from seeded values:
+    proved cold and twice warm, verified, tampered."""
+    import stark_circuits as circuits
+    return _stark_phase(
+        "starky-wide", device,
+        lambda: circuits.wide_fibonacci(PORT, WIDE_LANES, STARK_ROWS), 3)[0]
+
+
+@phase("starky-logup")
+def starky_logup(device):
+    """PermutationStark at 2^20 rows (logUp helper columns, their inverses
+    over every row, the running sum): proved cold and once warm, verified;
+    a trace that is no permutation gives a proof that fails."""
+    from plonky2_tpu_torch.starky.permutation_stark import PermutationStark
+    from plonky2_tpu_torch.starky.prover import prove
+    from plonky2_tpu_torch.starky.verifier import verify_stark_proof
+
+    def system():
+        stark = PermutationStark()
+        return stark, stark.generate_trace(7, STARK_ROWS), [7]
+    run, stark, _ = _stark_phase("starky-logup", device, system, 2)
+    config = _stark_config()
+    trace = stark.generate_trace(7, STARK_ROWS)
+    trace[0][3] = 12345
+    bad = prove(stark, config, trace, [7], device=device)
+    _reject("starky-logup", "a trace that is no permutation",
+            lambda: verify_stark_proof(stark, bad, config))
+    return run
+
+
+@phase("starky-ctl")
+def starky_ctl(device):
+    """tests/test_ctl.py's two tables at 2^20 rows each through prove_multi
+    (cold and once warm) and verify_multi; a multiset mismatch fails."""
+    import stark_circuits as circuits
+    from plonky2_tpu_torch.starky.prover import prove_multi
+    from plonky2_tpu_torch.starky.verifier import verify_multi
+
+    config = _stark_config()
+    starks, traces, ctls, pis = circuits.ctl_system(PORT, STARK_ROWS)
+    run, proofs = _stark_drive(
+        "starky-ctl", device,
+        lambda timing: prove_multi(starks, config, traces, ctls, pis, timing,
+                                   device=device),
+        lambda mp: verify_multi(starks, mp, config, ctls), POSEIDON_PATH, 2)
+    zs = [p.proof.openings.ctl_zs_first for p in proofs[0].stark_proofs]
+    log(f"starky-ctl: 2 tables x {STARK_ROWS} rows, Z openings at x = 1 "
+        f"{zs}")
+    starks, traces, ctls, pis = circuits.ctl_system(PORT, STARK_ROWS,
+                                                    mismatch=True)
+    bad = prove_multi(starks, config, traces, ctls, pis, device=device)
+    _reject("starky-ctl", "a multiset mismatch",
+            lambda: verify_multi(starks, bad, config, ctls))
+    return run
+
+
+@phase("starky-recursive")
+def starky_recursive(device, stark, stark_proof):
+    """The starky-fib proof verified inside a plonky2 circuit
+    (standard_recursion_config(), seed 1234): built (its host layout timed
+    apart), proved cold and STARK_WARM_PROVES times warm on the card,
+    verified,
+    tampered, its public inputs the STARK's; a STARK proof with one FRI
+    opening flipped makes no witness."""
+    import stark_circuits as circuits
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.plonk.circuit_builder import commit
+    from plonky2_tpu_torch.starky.recursive_verifier import (
+        set_stark_proof_with_pis_target,
+    )
+
+    config = _stark_config()
+    made = {}
+
+    def witness(proof):
+        pw = PartialWitness()
+        set_stark_proof_with_pis_target(pw, made["pt"], proof)
+        return pw
+
+    def build():
+        t0 = time.perf_counter()
+        builder, made["pt"] = circuits.stark_verifier_circuit(
+            PORT, stark, config, STARK_DEGREE_BITS)
+        made["host"] = builder.build_host()
+        made["host_s"] = time.perf_counter() - t0
+        return commit(made["host"], device), lambda proofs: witness(
+            stark_proof)
+    run, data, proofs = _drive("starky-recursive", device, build,
+                               POSEIDON_PATH, 1 + STARK_WARM_PROVES)
+    log(f"starky-recursive: layout + build_host {made['host_s']:.3f} s of "
+        f"the build, {len(data.common.gates)} gate types")
+    if proofs[0].public_inputs != list(stark_proof.public_inputs):
+        raise AssertionError("starky-recursive: its public inputs are not "
+                             "the STARK's")
+    bad = copy.deepcopy(stark_proof)
+    evals = bad.proof.opening_proof.query_round_proofs[0] \
+        .initial_trees_proof.evals_proofs[0][0]
+    evals[0] = (int(evals[0]) + 1) % P
+
+    def tampered():
+        host = made["host"]
+        generate_partial_witness(witness(bad), host, host.common)
+    _reject("starky-recursive", "a STARK proof with a flipped FRI opening",
+            tampered)
+    return run
+
+
+@phase("starky-poseidon2")
+def starky_poseidon2(device):
+    """FibonacciStark at 2^16 rows under Poseidon2GoldilocksConfig: proved
+    once, verified, tampered."""
+    import stark_circuits as circuits
+    from plonky2_tpu_torch.hash.hashers import CONFIGS
+    return _stark_phase(
+        "starky-poseidon2", device,
+        lambda: circuits.fibonacci(PORT, P2_STARK_ROWS), 1, gc=CONFIGS[P2],
+        kernels=POSEIDON2_PATH)[0]
+
+
 def _wrapper_ms(fn, reps: int) -> float:
     """ms per call of `reps` back-to-back calls, CUDA events: the host's
     time whenever that is longer than the kernels'."""
@@ -1126,40 +1397,86 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
 
 # shapes held beside those the proofs launched: the K4/K5 batch sizes of the
 # TPU and the small batches of K6 (compress levels, now served by the tree
-# kernels) and every tree of the dummy-2^14 proofs
+# kernels), every tree of the dummy-2^14 proofs, and K6 on the 2^21-leaf
+# tree of a STARK of 2^20 rows
 TREES = [(1 << 17, 4), (1 << 13, 4), (1 << 9, 4), (1 << 5, 4)]
 SMALL = [(256,), (128,), (64,), (32,), (16,)]
 EXTRA_SHAPES = {"poseidon_permute": SMALL, "poseidon_merkle_tree": TREES,
-                "poseidon2_permute": SMALL, "poseidon2_merkle_tree": TREES}
+                "poseidon2_permute": SMALL,
+                "poseidon2_merkle_tree": TREES + [(1 << 21, 4)]}
+# above these sizes the plain version (PyTorch ops, on the card) is held on
+# a seeded sample: K1 on rows of its batch, a tree on one subtree of 2^17
+# leaves, a leaf hash on 2^16 leaves (rows, subtrees and leaves are
+# independent, so a sample is a full check of what it covers)
+NTT_FULL_ELEMS = 1 << 25
+TREE_FULL_LEAVES = 1 << 17
+LEAVES_FULL_ELEMS = 1 << 25
+LEAF_SAMPLE = 1 << 16
 
 
-def _cases(name, shape, rand):
-    """(kernel call, plain call, size) at one shape."""
+def _cases(name, shape, rand, rng):
+    """(kernel call, plain call, size, pick, sample): `pick` takes from the
+    kernel's output what `plain` computes (all of it, or the sample that
+    `sample` names)."""
     from plonky2_tpu_torch.hash import poseidon as ps
     from plonky2_tpu_torch.hash import poseidon2 as ps2
     from plonky2_tpu_torch.ops import ntt
 
+    whole = lambda out: out
     if name == "ntt":
         batch, lg_n, rate, direction, shift = shape
         x = rand(batch, 1 << lg_n)
+        N = 1 << (lg_n + rate)
+        rows = torch.arange(batch)
+        if batch * N > NTT_FULL_ELEMS:
+            k = max(1, (NTT_FULL_ELEMS >> 1) // N)
+            rows = torch.from_numpy(np.sort(rng.choice(batch, k,
+                                                       replace=False)))
+        rows = rows.to(x.device)
+        xs = x.index_select(0, rows)
+        pick = whole if len(rows) == batch else \
+            (lambda out: out.index_select(0, rows))
+        sample = None if len(rows) == batch else f"{len(rows)} of {batch} rows"
         if direction == "inverse":
             return (lambda: ntt.inverse(x, shift),
-                    lambda: ntt.inverse_plain(x, shift), x.numel())
+                    lambda: ntt.inverse_plain(xs, shift), x.numel(), pick,
+                    sample)
         return (lambda: ntt.forward(x, rate, shift),
-                lambda: ntt.forward_plain(x, rate, shift), x.numel() << rate)
+                lambda: ntt.forward_plain(xs, rate, shift), x.numel() << rate,
+                pick, sample)
     mod = ps2 if name.startswith("poseidon2") else ps
     if name.endswith("_merkle_tree"):
         n, cap_height = shape
         d = rand(n, 4)
+        if n <= TREE_FULL_LEAVES:
+            return (lambda: mod.merkle_layers(d, cap_height),
+                    lambda: mod.merkle_layers_plain(d, cap_height), n, whole,
+                    None)
+        # subtree t: the leaves [t m, (t + 1) m); layer l holds its nodes
+        # [t m / 2^l, (t + 1) m / 2^l)
+        m = TREE_FULL_LEAVES
+        k = min(m.bit_length() - 1, (n.bit_length() - 1) - cap_height)
+        t = int(rng.integers(0, n // m))
         return (lambda: mod.merkle_layers(d, cap_height),
-                lambda: mod.merkle_layers_plain(d, cap_height), n)
+                lambda: mod.merkle_layers_plain(
+                    d[t * m:(t + 1) * m], (m.bit_length() - 1) - k), n,
+                lambda layers: [layers[l - 1][t * (m >> l):(t + 1) * (m >> l)]
+                                for l in range(1, k + 1)],
+                f"subtree {t} of {n // m} ({m} leaves)")
     if name.endswith("_permute"):
         s = rand(shape[0], 12)
         return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
-                s.numel())
+                s.numel(), whole, None)
     x = rand(*shape)
-    return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(x),
-            x.numel())
+    if x.numel() <= LEAVES_FULL_ELEMS:
+        return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(x),
+                x.numel(), whole, None)
+    idx = torch.from_numpy(np.sort(rng.choice(shape[1], LEAF_SAMPLE,
+                                              replace=False))).to(x.device)
+    xs = x.index_select(1, idx)
+    return (lambda: mod.hash_leaves(x), lambda: mod.hash_leaves_plain(xs),
+            x.numel(), lambda out: out.index_select(0, idx),
+            f"{LEAF_SAMPLE} of {shape[1]} leaves")
 
 
 @phase("kernels vs plain")
@@ -1186,9 +1503,10 @@ def kernels_vs_plain(device, runs, clock_mhz):
                                if s not in shapes]
         worst, largest, per_shape, dev_ms = 0, None, [], {}
         for shape in held:
-            run, plain, size = _cases(kern.name, shape, rand)
+            run, plain, size, pick, sample = _cases(kern.name, shape, rand,
+                                                    rng)
             want, plain_ms = _timed_ms(plain)
-            err = _max_abs_err(run(), want)
+            err = _max_abs_err(pick(run()), want)
             del want
             worst = max(worst, err)
             before = kern.launches
@@ -1202,11 +1520,13 @@ def kernels_vs_plain(device, runs, clock_mhz):
             wrap_ms = _wrapper_ms(run, 100 if small else 10)
             bound_ms, bound_by = _bound(kern.name, shape, clock_mhz)
             dev_ms[shape] = (ms, per_call)
-            log(f"{kern.name} {shape}: max_abs_err {err}, device {ms:.5f} ms"
-                f" ({per_call} launches a call), wrapper {wrap_ms:.5f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}), launched {shapes.get(shape, 0)}")
-            per_shape.append({"shape": list(shape),
+            held_on = f" on {sample}" if sample else ""
+            log(f"{kern.name} {shape}: max_abs_err {err}{held_on}, device "
+                f"{ms:.5f} ms ({per_call} launches a call), wrapper "
+                f"{wrap_ms:.5f} ms, plain{held_on} {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by}), launched "
+                f"{shapes.get(shape, 0)}")
+            per_shape.append({"shape": list(shape), "sample": sample,
                               "launches": shapes.get(shape, 0),
                               "launches_per_call": per_call, "ms": ms,
                               "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
@@ -1273,7 +1593,7 @@ def k1_past_2_19(device, table, clock_mhz):
     for shape in K1_LARGE:
         x = gl.from_u64(rng.integers(0, P, size=(shape[0], 1 << shape[1]),
                                      dtype=np.uint64), device)
-        run, plain, _ = _cases("ntt", shape, lambda *_: x)
+        run, plain, _, _, _ = _cases("ntt", shape, lambda *_: x, rng)
         want, plain_ms = _timed_ms(plain)
         err = _max_abs_err(run(), want)
         del want
@@ -1488,6 +1808,12 @@ def main() -> int:
         runs[name], gates = fn(device)
         laid_out += gates
     gates_on_card(device, laid_out)
+    runs["starky-fib"], stark, stark_proof = starky_fib(device)
+    runs["starky-wide"] = starky_wide(device)
+    runs["starky-logup"] = starky_logup(device)
+    runs["starky-ctl"] = starky_ctl(device)
+    runs["starky-recursive"] = starky_recursive(device, stark, stark_proof)
+    runs["starky-poseidon2"] = starky_poseidon2(device)
     table = kernels_vs_plain(device, runs, clock)
     k1_past_2_19(device, table, clock)
     edge_batches(device, table)

@@ -12,6 +12,9 @@ field by field, the gates from their ids (a lookup gate's table from the
 gate), the hasher config from its name, the generators from their class
 name and fields (BigUint and nonnative targets rebuilt as the port's). Targets are plain tuples
 in both packages.
+
+`stark_proof_from` and `multi_proof_from` rebuild the port's STARK proof
+containers from the JAX package's, the same way, by attribute name.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from .ecgfp5.gadgets import (
 from .field import goldilocks as gl
 from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
+from .fri.proof import (
+    FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep,
+)
 from .gadgets.extension import _ExtInverseGenerator
 from .gadgets.misc import _BaseSumGenerator, _EqualityGenerator
 from .gadgets.u32 import (
@@ -73,6 +79,9 @@ from .plonk.circuit_data import (
     VerifierOnlyData,
 )
 from .plonk.config import CircuitConfig
+from .starky.proof import (
+    MultiProof, StarkOpeningSet, StarkProof, StarkProofWithPublicInputs,
+)
 from .utils.bits import log2_strict
 
 
@@ -316,3 +325,66 @@ def circuit_data_from_arrays(common, *, polynomials: np.ndarray,
     verifier_only = VerifierOnlyData(constants_sigmas_cap=tree.cap_digests(),
                                      circuit_digest=digest)
     return CircuitData(prover_only, verifier_only, port_common)
+
+
+def _digest(d):
+    """A host digest: bytes stay bytes, 4 elements become a tuple of ints."""
+    if isinstance(d, (bytes, bytearray)):
+        return bytes(d)
+    return tuple(int(x) for x in d)
+
+
+def _cap(cap):
+    return None if cap is None else [_digest(d) for d in cap]
+
+
+def _ext(v) -> tuple:
+    return int(v[0]), int(v[1])
+
+
+def _exts(vs):
+    return None if vs is None else [_ext(v) for v in vs]
+
+
+def fri_proof_from(fp) -> FriProof:
+    """The port's FriProof for a FriProof of the JAX package."""
+    return FriProof(
+        commit_phase_merkle_caps=[_cap(c)
+                                  for c in fp.commit_phase_merkle_caps],
+        query_round_proofs=[FriQueryRound(
+            initial_trees_proof=FriInitialTreeProof([
+                (np.asarray(evals, dtype=np.uint64), np.asarray(path))
+                for evals, path in q.initial_trees_proof.evals_proofs]),
+            steps=[FriQueryStep(evals=_exts(s.evals),
+                                merkle_proof=np.asarray(s.merkle_proof))
+                   for s in q.steps])
+            for q in fp.query_round_proofs],
+        final_poly=_exts(fp.final_poly),
+        pow_witness=int(fp.pow_witness))
+
+
+def stark_proof_from(obj) -> StarkProofWithPublicInputs:
+    """The port's StarkProofWithPublicInputs for the JAX package's."""
+    p, o = obj.proof, obj.proof.openings
+    return StarkProofWithPublicInputs(
+        proof=StarkProof(
+            trace_cap=_cap(p.trace_cap),
+            quotient_polys_cap=_cap(p.quotient_polys_cap),
+            openings=StarkOpeningSet(
+                local_values=_exts(o.local_values),
+                next_values=_exts(o.next_values),
+                quotient_polys=_exts(o.quotient_polys),
+                auxiliary_polys=_exts(o.auxiliary_polys),
+                auxiliary_polys_next=_exts(o.auxiliary_polys_next),
+                ctl_zs_first=(None if o.ctl_zs_first is None
+                              else [int(v) for v in o.ctl_zs_first])),
+            opening_proof=fri_proof_from(p.opening_proof),
+            auxiliary_polys_cap=_cap(p.auxiliary_polys_cap)),
+        public_inputs=[int(v) for v in obj.public_inputs])
+
+
+def multi_proof_from(obj) -> MultiProof:
+    """The port's MultiProof for the JAX package's."""
+    return MultiProof(
+        stark_proofs=[stark_proof_from(p) for p in obj.stark_proofs],
+        ctl_challenges=[(int(b), int(g)) for b, g in obj.ctl_challenges])

@@ -153,6 +153,18 @@ def reduce_sum(a, dim: int = 0):
     return _reduce_lh(a0.sum(dim), a1.sum(dim))
 
 
+def prefix_sum(a):
+    """Inclusive prefix sums along the last axis (up to 2^30 terms): the
+    32-bit halves are summed exactly in int64, then reduced once."""
+    lo, hi = _split(a)
+    return _reduce_lh(lo.cumsum(-1), hi.cumsum(-1))
+
+
+def suffix_sum(a):
+    """s_i = sum_{j >= i} a_j along the last axis (up to 2^30 terms)."""
+    return prefix_sum(a.flip(-1)).flip(-1)
+
+
 def exp(a, e: int):
     """a^e for a python-int exponent, square-and-multiply."""
     result = torch.ones_like(a)

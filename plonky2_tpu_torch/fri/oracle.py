@@ -62,7 +62,7 @@ class PolynomialBatch:
         """[num_polys, N / step] LDE values in natural point order."""
         leaves = self.merkle_tree.leaves
         rev = ntt._perm("rev", leaves.shape[0], leaves.device)
-        return leaves.index_select(0, rev)[::step].t()
+        return leaves.index_select(0, rev[::step]).t()
 
     def get_lde_values(self, index: int, step: int = 1):
         """Host row of LDE values at point index * step."""

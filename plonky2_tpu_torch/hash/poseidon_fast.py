@@ -237,6 +237,10 @@ class IntAlgebra:
         return (a + b) % P
 
     @staticmethod
+    def sub(a, b):
+        return (a - b) % P
+
+    @staticmethod
     def mul(a, b):
         return (a * b) % P
 
@@ -247,6 +251,14 @@ class IntAlgebra:
     @staticmethod
     def add_const(a, c):
         return (a + c) % P
+
+    @staticmethod
+    def const(c):
+        return c % P
+
+    @staticmethod
+    def zero():
+        return 0
 
 
 INT = IntAlgebra()

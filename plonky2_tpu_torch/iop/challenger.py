@@ -17,6 +17,15 @@ class Challenger:
         self.input_buffer: list[int] = []
         self.output_buffer: list[int] = []
 
+    def __deepcopy__(self, memo) -> "Challenger":
+        """A fork of the transcript: the sponge and buffers are copied, the
+        hasher (stateless) is shared."""
+        fork = Challenger(self.hasher)
+        fork.sponge_state = list(self.sponge_state)
+        fork.input_buffer = list(self.input_buffer)
+        fork.output_buffer = list(self.output_buffer)
+        return fork
+
     def observe_element(self, x: int) -> None:
         self.output_buffer.clear()
         self.input_buffer.append(int(x) % ref.ORDER)

@@ -18,14 +18,6 @@ def reduce_polys_base(polys: torch.Tensor, alpha) -> GF2:
                gl.reduce_sum(gl.mul(polys, apow.c1.unsqueeze(1)), 0))
 
 
-def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
-    """s_i = sum_{j >= i} x_j along the last axis (exact: 32-bit half sums
-    stay below 2^63 for fewer than 2^31 terms)."""
-    lo = (x & gl.M32).flip(-1).cumsum(-1).flip(-1)
-    hi = ((x >> 32) & gl.M32).flip(-1).cumsum(-1).flip(-1)
-    return gl._reduce_lh(lo, hi)
-
-
 def divide_by_linear(p: GF2, z) -> GF2:
     """Quotient of p(X) by (X - z) for a host extension point z, dropping the
     remainder: q_i = z^{-(i+1)} sum_{j>i} p_j z^j. Returns [N] with the last
@@ -33,7 +25,7 @@ def divide_by_linear(p: GF2, z) -> GF2:
     n = p.shape[-1]
     device = p.c0.device
     w = p * gf2_powers(z, n, device)
-    s = GF2(_suffix_sum(w.c0), _suffix_sum(w.c1))
+    s = GF2(gl.suffix_sum(w.c0), gl.suffix_sum(w.c1))
     zinv = ref.ext2_inverse(tuple(z))
     zinv_pow = gf2_powers(zinv, n, device) * GF2.const(zinv, device)
     s_shift = GF2.cat([s[1:], GF2.zeros((1,), device)])

@@ -122,11 +122,22 @@ def prove(prover_data, common, inputs, step=None) -> ProofWithPublicInputs:
     return ProofWithPublicInputs(proof=proof, public_inputs=public_inputs)
 
 
+# elements of the coefficient block `_eval_at` multiplies at once: wider
+# blocks (a STARK trace of 128 columns over 2^20 rows) go in runs of rows
+EVAL_CHUNK = 1 << 24
+
+
 def _eval_at(coeffs: torch.Tensor, z) -> list:
     """Every row of coeffs [num, n] evaluated at the extension point z."""
-    zp = gf2_powers(z, coeffs.shape[-1], coeffs.device)
-    return GF2(gl.reduce_sum(gl.mul(coeffs, zp.c0), -1),
-               gl.reduce_sum(gl.mul(coeffs, zp.c1), -1)).to_pairs()
+    n = coeffs.shape[-1]
+    zp = gf2_powers(z, n, coeffs.device)
+    rows = max(1, EVAL_CHUNK // n)
+    out = []
+    for lo in range(0, coeffs.shape[0], rows):
+        c = coeffs[lo:lo + rows]
+        out += GF2(gl.reduce_sum(gl.mul(c, zp.c0), -1),
+                   gl.reduce_sum(gl.mul(c, zp.c1), -1)).to_pairs()
+    return out
 
 
 def _chunk_products(rows: torch.Tensor, size: int) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The port stands alone: in a subprocess where `import jax` and `import
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
-verify fib(21) on the CPU under each of the four hasher configs, and check that
+verify fib(21) on the CPU under each of the four hasher configs, and
+FibonacciStark at 2^5 with the port's starky, and check that
 no module of JAX or of the JAX package was loaded. An AST scan checks that
-no module of the port, chip_smoke.py, the gadget circuits it proves
-(tests/gadget_circuits.py), the port's kernel probe
+no module of the port, chip_smoke.py, the gadget and STARK circuits it proves
+(tests/gadget_circuits.py, tests/stark_circuits.py), the port's kernel probe
 (scripts/torch_poseidon_probe.py) or its wrap profile
 (scripts/torch_wrap_profile.py) imports either. This is what
 lets chip_smoke.py run on a machine with no JAX."""
@@ -72,6 +73,40 @@ def test_port_proves_outer_configs_with_jax_blocked(config):
     _prove_blocked(config)
 
 
+STARK_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["plonky2_tpu"] = None
+sys.path.insert(0, "tests")
+import stark_circuits
+from plonky2_tpu_torch.starky.config import StarkConfig
+from plonky2_tpu_torch.starky.prover import prove
+from plonky2_tpu_torch.starky.verifier import verify_stark_proof
+
+config = StarkConfig.standard_fast_config()
+stark, trace, pis = stark_circuits.fibonacci("plonky2_tpu_torch", 1 << 5)
+proof = prove(stark, config, trace, pis, device="cpu")
+verify_stark_proof(stark, proof, config)
+assert proof.public_inputs == [0, 1, 2178309], proof.public_inputs
+loaded = [m for m, mod in sys.modules.items()
+          if m.split(".")[0] in ("jax", "jaxlib", "plonky2_tpu")
+          and mod is not None]
+assert not loaded, loaded
+print("NOJAX_OK")
+"""
+
+
+def test_port_proves_a_stark_with_jax_blocked():
+    """FibonacciStark at 2^5 (tests/stark_circuits.py) proved and verified
+    by the port's starky."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", STARK_SCRIPT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
 def _imported_roots(path):
     """Top-level package of every absolute import in a Python source."""
     with open(path) as f:
@@ -87,6 +122,7 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "gadget_circuits.py"),
+             os.path.join(ROOT, "tests", "stark_circuits.py"),
              os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
              os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
@@ -136,6 +172,15 @@ GADGET_MODULES = [
     "plonky2_tpu_torch.gates.interpolation_gates",
 ]
 
+# the STARK system, its timing tree and the test harnesses
+STARKY_MODULES = [
+    "plonky2_tpu_torch.utils.timing",
+    "plonky2_tpu_torch.gates.gate_testing",
+] + [f"plonky2_tpu_torch.starky.{m}" for m in (
+    "config", "stark", "proof", "fibonacci_stark", "unconstrained_stark",
+    "permutation_stark", "lookup", "cross_table_lookup", "prover",
+    "verifier", "recursive_verifier", "stark_testing")]
+
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -150,16 +195,17 @@ print("\n".join(names))
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    """Each module of the port, the recursion's, the outer configs' hashers
-    and the gadget crates included, imports where `import jax` and `import
-    plonky2_tpu` fail."""
+    """Each module of the port, the recursion's, the outer configs' hashers,
+    the gadget crates and starky included, imports where `import jax` and
+    `import plonky2_tpu` fail."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
-    listed = RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
+    listed = (RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
+              + STARKY_MODULES)
     assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
