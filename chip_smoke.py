@@ -93,12 +93,38 @@ Phases, each of which raises on failure:
      starky-poseidon2, FibonacciStark at 2^16 under Poseidon2, proved once.
      Each logs its proves by TimingTree scope, its peak memory and
      launches; each verifies every proof and rejects a flipped opening;
+  9f. batch-dummy-2^14: the dummy-2^14 circuit of phase 5 proved by
+     plonk/batch_prover.py prove_batch for 4 distinct witnesses (public
+     input 0 = 42 + i), cold and warm, then the same witnesses through
+     serial prove, then a batch of 3; the builder's random stream is rewound
+     before each, and every batched proof must equal its serial twin byte
+     for byte; all verify, one is tampered; seconds, hand-kernel launches
+     and aten ops a proof and peak memory, batched and serial;
+  9g. batch-dummy-2^14-poseidon2: the same at B = 2 under Poseidon2;
+  9h. zk-fib: fib(31) under standard_recursion_zk_config(), which blinding
+     lays out at 2^14: proved cold and warm with unseeded salts (both
+     verify, their wires caps differ), twice with one seeded salt stream
+     and the builder's stream rewound (equal bytes), tampered; its bytes to
+     chiprun_out/zk_fib_proof.bin;
+  9i. compressed: the dummy-2^14 proof and the zk-fib proof compressed,
+     serialized, read back, decompressed to their original bytes and
+     verified by verify_compressed; a tampered compressed proof refused;
+     the dummy's compressed bytes to chiprun_out/dummy_2_14_compressed.bin
+     (scripts/jax_verify_service_proofs.py verifies both files with the JAX
+     package);
+  9j. circuit-serialization: a dummy-2^14 CircuitData saved and loaded on
+     the card (its constants recommitted through K1, K3 and K2): the loaded
+     prover, handed the original's random stream, proves the original's
+     bytes, and the verifier data read from its own blob verifies them;
   10. every kernel against its plain PyTorch version on the card, at every
-     shape phases 3, 5-9, 9a-9c and 9e launched it at (tolerance:
+     shape phases 3, 5-9, 9a-9c, 9e-9h and 9j launched it at, and K7 at
+     zk-fib's salted leaf widths as well (tolerance:
      bit-exact), over full outputs, except where the plain version would
      take tens of seconds: K1 above 2^25 output elements on a seeded sample
-     of its rows, a tree above 2^17 leaves on one seeded subtree of 2^17
-     leaves, a leaf hash above 2^25 elements on 2^16 seeded leaves; with
+     of its rows, a tree above 2^17 leaves on each of its subtrees of 2^17
+     leaves where it has at most four (a batch's trees) and otherwise on
+     one seeded subtree, a leaf hash above 2^25 elements on 2^16 seeded
+     leaves; with
      its device time, its wrapper's time, the plain version's time, its
      bound and its device ms per warm prove;
   11. K1 past 2^19: coset LDE [1, 2^17 -> 2^20] and [1, 2^21 -> 2^24] at
@@ -120,8 +146,8 @@ Phases, each of which raises on failure:
      sponge states (48 through K2, 24 through K6), each witness checked on
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
-The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c
-and 9e (6a's three drives included) and
+The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c,
+9e-9h and 9j (6a's three drives included) and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -871,6 +897,319 @@ def dummy_2_14_poseidon2(device):
                   _dummy_build(CONFIGS[P2], device), POSEIDON2_PATH)[0]
 
 
+# ---------------------------------------------------------------------------
+# the proving-service surface: batches, zero knowledge, compressed proofs,
+# circuit files
+# ---------------------------------------------------------------------------
+
+class _OpCounter:
+    """Counts the aten ops dispatched while it is entered (each is one
+    kernel launch or more): the launches of a prove beside the exact counts
+    of the hand kernels."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.ops += 1
+                return func(*args, **(kwargs or {}))
+        self.ops = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _builder_rng(data):
+    """The numpy Generator the circuit's random-value generators share (the
+    builder's): its state decides the random wires of the next prove."""
+    from plonky2_tpu_torch.iop.generator import RandomValueGenerator
+    rngs = {id(g.rng): g.rng for g in data.prover_only.generators
+            if isinstance(g, RandomValueGenerator)}
+    assert len(rngs) == 1, len(rngs)
+    return next(iter(rngs.values()))
+
+
+def _proof_bytes(data, proof) -> bytes:
+    from plonky2_tpu_torch.utils.serialization import (
+        serialize_proof_with_pis,
+    )
+    return serialize_proof_with_pis(proof, data.common)
+
+
+BATCH_SIZES = (4, 3)
+
+
+def _batch_vs_serial(name: str, device, data, kernels: tuple,
+                     sizes=BATCH_SIZES):
+    """prove_batch of max(sizes) distinct dummy witnesses (public input 0 =
+    42 + i), cold and warm, the same witnesses through serial `prove`, then
+    the other batch sizes; the builder's random stream is rewound before
+    each, so every batched proof must equal its serial twin byte for byte.
+    Logs seconds, hand-kernel launches and aten ops a proof, and peak
+    memory, batched and serial. Returns the phase's (launches, shapes, warm
+    shapes) and the serial proofs."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.plonk.batch_prover import prove_batch
+    from plonky2_tpu_torch.recursion.dummy import dummy_witness
+
+    B = max(sizes)
+    pis = data.prover_only.public_inputs
+    witnesses = [dummy_witness(pis, {0: 42 + i}) for i in range(B)]
+    rng = _builder_rng(data)
+    start = copy.deepcopy(rng.bit_generator.state)
+
+    def rewind():
+        rng.bit_generator.state = copy.deepcopy(start)
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+        kernel0 = sum(k.launches for k in backend.KERNELS.values())
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        launched = sum(k.launches for k in backend.KERNELS.values()) - kernel0
+        shapes = {k.name: {s: n - before[k.name].get(s, 0)
+                           for s, n in k.shapes.items()
+                           if n > before[k.name].get(s, 0)}
+                  for k in backend.KERNELS.values()}
+        return out, seconds, launched, torch.cuda.max_memory_allocated(
+            device), shapes
+
+    torch.cuda.synchronize(device)
+    backend.reset_counts()
+    rewind()
+    with _OpCounter() as ops:
+        cold = prove_batch(data.prover_only, data.common, witnesses)
+    batch_ops = ops.ops
+    rewind()
+    batch, t_batch, k_batch, peak_batch, warm = timed(
+        lambda: prove_batch(data.prover_only, data.common, witnesses))
+    rewind()
+    serial, t_serial, k_serial, peak_serial, _ = timed(
+        lambda: [data.prove(w) for w in witnesses])
+    rewind()
+    with _OpCounter() as ops:
+        again = data.prove(witnesses[0])
+    serial_ops = ops.ops
+    want = [_proof_bytes(data, p) for p in serial]
+    for what, proofs in (("cold batch", cold), ("warm batch", batch)):
+        got = [_proof_bytes(data, p) for p in proofs]
+        if got != want:
+            raise AssertionError(f"{name}: {what} of {B} differs from the "
+                                 f"serial proofs")
+    if _proof_bytes(data, again) != want[0]:
+        raise AssertionError(f"{name}: a serial prove is not reproducible")
+    if len(set(want)) != B:
+        raise AssertionError(f"{name}: distinct witnesses, equal proofs")
+    log(f"{name}: B = {B} batched proofs equal the serial ones byte for "
+        f"byte (cold and warm)")
+    log(f"{name}: batch B = {B}: {t_batch:.3f} s, {t_batch / B:.3f} s a "
+        f"proof, {k_batch / B:.1f} hand-kernel launches and "
+        f"{batch_ops / B:.0f} aten ops a proof, peak {peak_batch / 2**20:.1f}"
+        f" MiB; serial: {t_serial / B:.3f} s a proof, {k_serial / B:.1f} "
+        f"hand-kernel launches and {serial_ops} aten ops a proof, peak "
+        f"{peak_serial / 2**20:.1f} MiB; seconds a proof batch/serial "
+        f"{t_batch / t_serial:.3f}, aten ops a proof serial/batch "
+        f"{serial_ops * B / batch_ops:.2f}")
+    for b in sizes:
+        if b == B:
+            continue
+        rewind()
+        proofs, t_b, k_b, peak_b, _ = timed(
+            lambda: prove_batch(data.prover_only, data.common,
+                                witnesses[:b]))
+        if [_proof_bytes(data, p) for p in proofs] != want[:b]:
+            raise AssertionError(f"{name}: the batch of {b} differs from "
+                                 f"its serial proofs")
+        log(f"{name}: batch B = {b} equals its serial proofs: {t_b:.3f} s, "
+            f"{t_b / b:.3f} s a proof, {k_b / b:.1f} hand-kernel launches "
+            f"a proof, peak {peak_b / 2**20:.1f} MiB")
+    t0 = time.perf_counter()
+    for p in batch:
+        data.verify(p)
+    log(f"{name}: every proof verifies ({(time.perf_counter() - t0) / B:.3f}"
+        f" s each)")
+    _reject_tampered(name, data, batch[-1])
+    launches = {k.name: k.launches for k in backend.KERNELS.values()}
+    shapes = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched by the main "
+                             f"path: {missing}")
+    log(f"{name}: launches {launches}")
+    log(f"{name}: warm batch shapes {warm}")
+    return (launches, shapes, warm), serial
+
+
+@phase("batch-dummy-2^14")
+def batch_dummy_2_14(device, data):
+    """The dummy-2^14 circuit of phase 5 (its data reused) through
+    prove_batch at B = 4 and 3 against serial proves."""
+    return _batch_vs_serial("batch-dummy-2^14", device, data, POSEIDON_PATH)
+
+
+@phase("batch-dummy-2^14-poseidon2")
+def batch_dummy_2_14_poseidon2(device):
+    from plonky2_tpu_torch.hash.hashers import CONFIGS
+    data = _dummy_build(CONFIGS[P2], device)()[0]
+    return _batch_vs_serial("batch-dummy-2^14-poseidon2", device, data,
+                            POSEIDON2_PATH, sizes=(2,))[0]
+
+
+ZK_STEPS = 30
+ZK_SALT_SEED = 2024
+
+
+@phase("zk-fib")
+def zk_fib(device):
+    """fib(31) under standard_recursion_zk_config(): blinding lays it out
+    at 2^14. A cold and a warm prove with unseeded salts (both verify, their
+    wire caps differ), two proves with one seeded salt stream and the
+    builder's random stream rewound (equal bytes), tampers refused; the
+    proof's bytes to chiprun_out/ for the JAX verifier."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import service_circuits as sc
+
+    holder = {}
+
+    def build():
+        builder, inputs = sc.fib(PORT, ZK_STEPS, sc.ZK_SEED,
+                                 "standard_recursion_zk_config")
+        holder["inputs"] = inputs
+        return (builder.build(device=device),
+                lambda proofs: inputs(*sc.ZK_INPUTS))
+    run, data, proofs = _drive("zk-fib", device, build, POSEIDON_PATH,
+                               proves=2)
+    common = data.common
+    if not common.fri_params.hiding or common.degree_bits != 14:
+        raise AssertionError(f"zk-fib: hiding {common.fri_params.hiding}, "
+                             f"degree 2^{common.degree_bits}")
+    if proofs[0].proof.wires_cap == proofs[1].proof.wires_cap:
+        raise AssertionError("zk-fib: two unseeded proofs share a wires cap")
+    rng = _builder_rng(data)
+    state = copy.deepcopy(rng.bit_generator.state)
+    seeded = []
+    for _ in range(2):
+        rng.bit_generator.state = copy.deepcopy(state)
+        seeded.append(data.prove(holder["inputs"](*sc.ZK_INPUTS),
+                                 rng=np.random.default_rng(ZK_SALT_SEED)))
+    if _proof_bytes(data, seeded[0]) != _proof_bytes(data, seeded[1]):
+        raise AssertionError("zk-fib: two seeded proves differ")
+    data.verify(seeded[0])
+    log(f"zk-fib: degree 2^{common.degree_bits} after blinding, "
+        f"unseeded proofs differ and verify, seeded proofs equal "
+        f"({len(_proof_bytes(data, seeded[0]))} bytes)")
+    _write_proof("zk_fib_proof.bin", data, proofs[0])
+    return run, data, proofs[0]
+
+
+@phase("compressed")
+def compressed(device, cases):
+    """Each (name, data, proof): compressed, serialized, read back,
+    decompressed to the original bytes, verified by `verify_compressed`;
+    a tampered compressed proof refused. The dummy-2^14 proof's compressed
+    bytes go to chiprun_out/ for the JAX verifier."""
+    from plonky2_tpu_torch.utils import serialization as ser
+    for name, data, proof in cases:
+        t0 = time.perf_counter()
+        comp = data.compress(proof)
+        raw = ser.serialize_compressed_proof_with_pis(comp, data.common)
+        t1 = time.perf_counter()
+        back = ser.deserialize_compressed_proof_with_pis(raw, data.common)
+        restored = data.decompress(back)
+        t2 = time.perf_counter()
+        if _proof_bytes(data, restored) != _proof_bytes(data, proof):
+            raise AssertionError(f"compressed {name}: decompression does "
+                                 f"not restore the proof")
+        data.verify_compressed(back)
+        bad = copy.deepcopy(back)
+        bad.public_inputs[0] = (bad.public_inputs[0] + 1) % P
+        try:
+            data.verify_compressed(bad)
+        except (AssertionError, KeyError) as e:
+            log(f"compressed {name}: flipped public input rejected ({e})")
+        else:
+            raise AssertionError(f"compressed {name}: a tampered compressed "
+                                 f"proof verified")
+        full = len(_proof_bytes(data, proof))
+        log(f"compressed {name}: {len(raw)} bytes against {full} "
+            f"({len(raw) / full:.3f}); compress + serialize {t1 - t0:.3f} s,"
+            f" read + decompress {t2 - t1:.3f} s")
+        if name == "dummy-2^14":
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, "dummy_2_14_compressed.bin"),
+                      "wb") as f:
+                f.write(raw)
+            log(f"{len(raw)} compressed proof bytes written to "
+                f"chiprun_out/dummy_2_14_compressed.bin")
+
+
+@phase("circuit-serialization")
+def circuit_serialization(device):
+    """The dummy-2^14 CircuitData saved and loaded on the card (its
+    constants committed anew through K1, K3 and K2): the loaded prover's
+    proof, from the original's random stream, equals the original's bytes;
+    the verifier data from the blob verifies it. Returns the phase's
+    (launches, shapes, warm shapes): the counts cover the load and its
+    prove."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.hash.hashers import PoseidonGoldilocksConfig
+    from plonky2_tpu_torch.recursion.dummy import dummy_witness
+    from plonky2_tpu_torch.utils import circuit_serialization as cs
+
+    t0 = time.perf_counter()
+    data = _dummy_build(PoseidonGoldilocksConfig, device)()[0]
+    torch.cuda.synchronize(device)
+    build_seconds = time.perf_counter() - t0
+    witness = dummy_witness(data.prover_only.public_inputs, {0: 42})
+    state = copy.deepcopy(_builder_rng(data).bit_generator.state)
+    want = _proof_bytes(data, data.prove(witness))
+    t0 = time.perf_counter()
+    blob = cs.serialize_circuit_data(data)
+    t_save = time.perf_counter() - t0
+    vblob = cs.serialize_verifier_circuit_data(data.verifier_data())
+    torch.cuda.synchronize(device)
+    backend.reset_counts()
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    t0 = time.perf_counter()
+    loaded = cs.deserialize_circuit_data(blob, device=device, rng=rng)
+    torch.cuda.synchronize(device)
+    t_load = time.perf_counter() - t0
+    load_launches = {k.name: k.launches for k in backend.KERNELS.values()}
+    proof = loaded.prove(witness)
+    torch.cuda.synchronize(device)
+    if _proof_bytes(loaded, proof) != want:
+        raise AssertionError("circuit-serialization: the loaded circuit's "
+                             "proof differs from the original's")
+    verifier = cs.deserialize_verifier_circuit_data(vblob)
+    verifier.verify(proof)
+    launches = {k.name: k.launches for k in backend.KERNELS.values()}
+    shapes = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+    missing = [k for k in ("ntt", "poseidon_hash_leaves",
+                           "poseidon_merkle_tree") if load_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"circuit-serialization: the load launched no "
+                             f"{missing}")
+    log(f"circuit-serialization: blob {len(blob)} bytes (verifier data "
+        f"{len(vblob)}), save {t_save:.3f} s, load on the card "
+        f"{t_load:.3f} s against the build's {build_seconds:.3f} s; the "
+        f"loaded circuit proves the original's bytes; load launches "
+        f"{load_launches}")
+    return launches, shapes, {k: {} for k in launches}
+
+
 # the package tests/gadget_circuits.py builds the gadget phases' circuits
 # with (it imports only the package it is given)
 PORT = "plonky2_tpu_torch"
@@ -1397,13 +1736,14 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
 
 # shapes held beside those the proofs launched: the K4/K5 batch sizes of the
 # TPU and the small batches of K6 (compress levels, now served by the tree
-# kernels), every tree of the dummy-2^14 proofs, and K6 on the 2^21-leaf
-# tree of a STARK of 2^20 rows
+# kernels), every tree of the dummy-2^14 proofs, K6 on the 2^21-leaf tree
+# of a STARK of 2^20 rows, and K7 on zk-fib's salted leaves (wires, Z)
 TREES = [(1 << 17, 4), (1 << 13, 4), (1 << 9, 4), (1 << 5, 4)]
 SMALL = [(256,), (128,), (64,), (32,), (16,)]
 EXTRA_SHAPES = {"poseidon_permute": SMALL, "poseidon_merkle_tree": TREES,
                 "poseidon2_permute": SMALL,
-                "poseidon2_merkle_tree": TREES + [(1 << 21, 4)]}
+                "poseidon2_merkle_tree": TREES + [(1 << 21, 4)],
+                "poseidon2_hash_leaves": [(139, 1 << 17), (24, 1 << 17)]}
 # above these sizes the plain version (PyTorch ops, on the card) is held on
 # a seeded sample: K1 on rows of its batch, a tree on one subtree of 2^17
 # leaves, a leaf hash on 2^16 leaves (rows, subtrees and leaves are
@@ -1412,6 +1752,7 @@ NTT_FULL_ELEMS = 1 << 25
 TREE_FULL_LEAVES = 1 << 17
 LEAVES_FULL_ELEMS = 1 << 25
 LEAF_SAMPLE = 1 << 16
+BATCH_SUBTREES = 4
 
 
 def _cases(name, shape, rand, rng):
@@ -1453,16 +1794,22 @@ def _cases(name, shape, rand, rng):
                     lambda: mod.merkle_layers_plain(d, cap_height), n, whole,
                     None)
         # subtree t: the leaves [t m, (t + 1) m); layer l holds its nodes
-        # [t m / 2^l, (t + 1) m / 2^l)
+        # [t m / 2^l, (t + 1) m / 2^l). A batch's tree (B proofs' trees side
+        # by side, at most BATCH_SUBTREES of them) is held subtree by
+        # subtree, against B plain trees; a longer one on one seeded subtree
         m = TREE_FULL_LEAVES
         k = min(m.bit_length() - 1, (n.bit_length() - 1) - cap_height)
-        t = int(rng.integers(0, n // m))
+        ts = (list(range(n // m)) if n // m <= BATCH_SUBTREES
+              else [int(rng.integers(0, n // m))])
         return (lambda: mod.merkle_layers(d, cap_height),
-                lambda: mod.merkle_layers_plain(
-                    d[t * m:(t + 1) * m], (m.bit_length() - 1) - k), n,
+                lambda: [layer for t in ts for layer in
+                         mod.merkle_layers_plain(
+                             d[t * m:(t + 1) * m], (m.bit_length() - 1) - k)],
+                n,
                 lambda layers: [layers[l - 1][t * (m >> l):(t + 1) * (m >> l)]
-                                for l in range(1, k + 1)],
-                f"subtree {t} of {n // m} ({m} leaves)")
+                                for t in ts for l in range(1, k + 1)],
+                (f"each of its {n // m} subtrees of {m} leaves" if len(ts) > 1
+                 else f"subtree {ts[0]} of {n // m} ({m} leaves)"))
     if name.endswith("_permute"):
         s = rand(shape[0], 12)
         return (lambda: mod.permute(s), lambda: mod.permute_plain(s),
@@ -1801,6 +2148,12 @@ def main() -> int:
     runs["cyclic-ivc"] = cyclic_ivc(device)
     runs["conditional"] = conditional(device)
     runs["dummy-2^14-poseidon2"] = dummy_2_14_poseidon2(device)
+    runs["batch-dummy-2^14"] = batch_dummy_2_14(device, dummy)[0]
+    runs["batch-dummy-2^14-poseidon2"] = batch_dummy_2_14_poseidon2(device)
+    runs["zk-fib"], zk_data, zk_proof = zk_fib(device)
+    compressed(device, [("dummy-2^14", dummy, dummy_proof),
+                        ("zk-fib", zk_data, zk_proof)])
+    runs["circuit-serialization"] = circuit_serialization(device)
     laid_out = []
     for name, fn in (("schnorr-ecgfp5", schnorr_ecgfp5),
                      ("secp256k1-curve", secp256k1_curve),

@@ -254,6 +254,14 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def call(entry: str, t: torch.Tensor, *args) -> int:
+    """C entry `entry` of the library on `args`, with t's device current:
+    the entries key their per-device state (K1's shared-memory attribute,
+    the SM count of the sponge grids) by `cudaGetDevice`."""
+    with torch.cuda.device(t.device):
+        return getattr(lib(), entry)(*args)
+
+
 def plain_path(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (the wrapper takes its plain version); False for
     a CUDA tensor (the wrapper launches its kernel); raises otherwise."""

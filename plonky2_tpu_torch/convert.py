@@ -256,8 +256,9 @@ def config_from(c) -> CircuitConfig:
             rate_bits=f.rate_bits, cap_height=f.cap_height,
             proof_of_work_bits=f.proof_of_work_bits,
             reduction_strategy=FriReductionStrategy(
-                kind=s.kind, arity_bits=s.arity_bits,
-                final_poly_bits=s.final_poly_bits),
+                kind=s.kind, fixed=tuple(s.fixed), arity_bits=s.arity_bits,
+                final_poly_bits=s.final_poly_bits,
+                max_arity_bits=s.max_arity_bits),
             num_query_rounds=f.num_query_rounds))
 
 

@@ -52,6 +52,7 @@
 // each other's shared memory, one block a 2^14 row, four stages a round,
 // the butterfly in one asm block, a padded shared-memory layout.
 #include <cuda_runtime.h>
+#include <atomic>
 #include <cstdint>
 
 #include "goldilocks_lazy.cuh"
@@ -261,6 +262,26 @@ void first_columns(const Args& a, int c, int s0, cudaStream_t st) {
 }
 
 // Runs the transform of `a`; writes the number of kernels launched.
+// A tile of 2^kTileLg points takes 8 << kTileLg bytes of dynamic shared
+// memory, above the 48 KiB default, so `ntt_tiles` needs the attribute set
+// on every device it runs on: once for each device (the current one,
+// `cudaGetDevice`), up to kMaxDevices; past that on every call.
+constexpr int kMaxDevices = 64;
+
+cudaError_t allow_tile_smem() {
+  static std::atomic<bool> done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load()) return cudaSuccess;
+  e = cudaFuncSetAttribute(ntt_tiles,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           8 << kTileLg);
+  if (e == cudaSuccess && known) done[dev].store(true);
+  return e;
+}
+
 int transform(Args a, void* stream, int* launches) {
   *launches = 0;
   if (a.batch <= 0) return 0;
@@ -287,8 +308,7 @@ int transform(Args a, void* stream, int* launches) {
   if (c > 2 * kMaxColLg - 1 || a.rate > lg_T)
     return (int)cudaErrorInvalidValue;
   a.lg_T = lg_T;
-  static const cudaError_t set = cudaFuncSetAttribute(
-      ntt_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 << kTileLg);
+  const cudaError_t set = allow_tile_smem();
   if (set != cudaSuccess) return (int)set;
   const int threads = lg_T - 3 < 9 ? 1 << (lg_T - 3) : kThreads;
   ntt_tiles<<<(unsigned)(a.batch << c), threads, 8 << lg_T, st>>>(a);

@@ -37,6 +37,7 @@
 //   `permute_lanes`.
 #pragma once
 #include <cuda_runtime.h>
+#include <atomic>
 #include <cstdint>
 
 #include "goldilocks_lazy.cuh"
@@ -190,19 +191,31 @@ __global__ void __launch_bounds__(TREE_THREADS)
   }
 }
 
+// The SM count of the current device (`cudaGetDevice`), looked up once for
+// each device up to MAX_DEVICES, on every call past that.
+constexpr int MAX_DEVICES = 64;
+
+inline int sm_count() {
+  static std::atomic<int> counts[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool known = dev >= 0 && dev < MAX_DEVICES;
+  int sms = known ? counts[dev].load() : 0;
+  if (sms == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+    if (known) counts[dev].store(sms);
+  }
+  return sms;
+}
+
 // Blocks for n threads of THREADS: Perm::BLOCKS_PER_SM on each SM at most,
 // each thread looping over its share, in whole waves of the resident
 // threads so that no wave runs part-empty.
 template <class Perm>
 unsigned grid_for(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  const long long slots = (long long)sms * Perm::BLOCKS_PER_SM * THREADS;
+  const long long slots = (long long)sm_count() * Perm::BLOCKS_PER_SM *
+                          THREADS;
   const long long waves = (n + slots - 1) / slots;
   return (unsigned)((n + waves * THREADS - 1) / (waves * THREADS));
 }

@@ -1,19 +1,32 @@
-"""PolynomialBatch — the FRI commitment without salt (reference
-fri/oracle.rs from_values:62, from_coeffs:134, get_lde_values:474,
+"""PolynomialBatch — the FRI commitment (reference fri/oracle.rs
+from_values:62, from_coeffs:134 with its salt, get_lde_values:474,
 prove_openings:508 with the final-poly-times-X tweak at :547).
 
 A commit is: iNTT (from values), coset LDE at rate 2^rate_bits (K1), then
 the Merkle tree over the LDE rows in bit-reversed order (the leaves). A
-device hasher hashes the leaf digests straight off the [num, N] LDE columns
-in natural order (K3 or K7), then bit-reverses them into leaf order, and
-builds the layers above them (the tree entry of K2 or K6); a host hasher
-(Keccak, PoseidonBN128) hashes the host copy of the leaves (`MerkleTree`).
+blinded commit (zero knowledge) appends SALT_SIZE random rows to the LDE
+before the leaves, drawn from the caller's numpy Generator (an unseeded one
+when none is given), so each leaf is num + 4 wide; `natural_lde` and
+`get_lde_values(_batch)` drop the salt, the FRI query rounds open it.
+
+`commit_batch` makes B commitments of one shape at once from coefficients
+[num, B, n] with the proof axis inside: K1 takes the [num, B, n] rows in one
+call, the LDE [num(+4), B, N] is the [num(+4), B N] leaf columns of all B
+trees (K3 or K7 hashes them in one call), and the B trees side by side, each
+proof's leaves contiguous, are one tree at cap height cap_height + log2 B
+whose layers below the B caps never mix two proofs (one call of the tree
+entry of K2 or K6; a B that is no power of two splits into its binary runs,
+a call each). Each proof's layers are views of those. A host hasher
+(Keccak, PoseidonBN128) hashes each proof's leaves on the host
+(`MerkleTree`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..field import goldilocks as gl
 from ..field import reference as ref
 from ..field.extension import GF2
 from ..hash.merkle import MerkleTree
@@ -25,16 +38,20 @@ from .config import FriParams
 from .prover import fri_proof
 from .structure import FriInstanceInfo
 
+SALT_SIZE = 4
+
 
 class PolynomialBatch:
-    """polynomials: int64 [num_polys, 2^degree_log] coefficient rows."""
+    """polynomials: int64 [num_polys, 2^degree_log] coefficient rows; the
+    tree's leaves are [N, num_polys (+ SALT_SIZE when blinding)]."""
 
     def __init__(self, polynomials: torch.Tensor, merkle_tree: MerkleTree,
-                 degree_log: int, rate_bits: int):
+                 degree_log: int, rate_bits: int, blinding: bool = False):
         self.polynomials = polynomials
         self.merkle_tree = merkle_tree
         self.degree_log = degree_log
         self.rate_bits = rate_bits
+        self.blinding = blinding
 
     @staticmethod
     def from_values(values: torch.Tensor, rate_bits: int, cap_height: int,
@@ -45,34 +62,37 @@ class PolynomialBatch:
     @staticmethod
     def from_coeffs(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
                     hasher) -> "PolynomialBatch":
-        lg_n = log2_strict(coeffs.shape[-1])
-        lde = ntt.coset_lde(coeffs, rate_bits)                  # [num, N]
-        rev = ntt._perm("rev", lde.shape[-1], lde.device)
-        leaves = lde.t().index_select(0, rev)                   # [N, num]
-        digests = (hasher.hash_or_noop_columns(lde).index_select(0, rev)
-                   if hasher.device else None)
-        tree = MerkleTree(leaves, cap_height, hasher, leaf_digests=digests)
-        return PolynomialBatch(coeffs, tree, lg_n, rate_bits)
+        """An unsalted commit of one batch [num, n] (a salted one is the
+        prover's, through `commit_batch`)."""
+        return commit_batch(coeffs.unsqueeze(1), rate_bits, cap_height,
+                            hasher).batches[0]
 
     @property
     def lde_bits(self) -> int:
         return self.degree_log + self.rate_bits
 
+    @property
+    def salt_size(self) -> int:
+        return SALT_SIZE if self.blinding else 0
+
     def natural_lde(self, step: int) -> torch.Tensor:
         """[num_polys, N / step] LDE values in natural point order."""
         leaves = self.merkle_tree.leaves
         rev = ntt._perm("rev", leaves.shape[0], leaves.device)
-        return leaves.index_select(0, rev[::step]).t()
+        num = leaves.shape[1] - self.salt_size
+        return leaves.index_select(0, rev[::step])[:, :num].t()
 
     def get_lde_values(self, index: int, step: int = 1):
-        """Host row of LDE values at point index * step."""
-        return self.merkle_tree.leaves_host()[
+        """Host row of LDE values at point index * step, salt dropped."""
+        row = self.merkle_tree.leaves_host()[
             reverse_bits(index * step, self.lde_bits)]
+        return row[:len(row) - self.salt_size]
 
     def get_lde_values_batch(self, indices, step: int = 1):
-        """[k, num_polys] host rows for many points."""
-        return self.merkle_tree.rows_batch(
+        """[k, num_polys] host rows for many points, salt dropped."""
+        rows = self.merkle_tree.rows_batch(
             [reverse_bits(int(i) * step, self.lde_bits) for i in indices])
+        return rows[:, :rows.shape[1] - self.salt_size]
 
     @staticmethod
     def prove_openings(instance: FriInstanceInfo, oracles: list,
@@ -99,3 +119,86 @@ class PolynomialBatch:
         lde_values = ntt.coset_lde_ext(shifted, rate_bits)
         return fri_proof([o.merkle_tree for o in oracles], lde_coeffs,
                          lde_values, challenger, fri_params)
+
+
+class BatchCommitment:
+    """B commitments of one shape made together (`commit_batch`):
+    `batches`, one PolynomialBatch a proof, over the shared coefficients
+    [num, B, n] and leaves [B, N, num (+ salt)]."""
+
+    def __init__(self, coeffs: torch.Tensor, leaves: torch.Tensor,
+                 batches: list):
+        self.coeffs = coeffs
+        self.leaves = leaves
+        self.batches = batches
+
+    def natural_lde(self, step: int) -> torch.Tensor:
+        """[num, B, N / step] LDE values in natural point order, salt
+        dropped."""
+        N = self.leaves.shape[1]
+        rev = ntt._perm("rev", N, self.leaves.device)
+        rows = self.leaves.index_select(1, rev[::step])
+        return rows[..., :self.coeffs.shape[0]].permute(2, 0, 1)
+
+    def caps(self) -> list:
+        return [b.merkle_tree.cap_digests() for b in self.batches]
+
+
+def _binary_runs(b: int) -> list[int]:
+    """b as powers of two, largest first (3 -> [2, 1])."""
+    return [1 << k for k in reversed(range(b.bit_length())) if b >> k & 1]
+
+
+def _device_trees(leaves: torch.Tensor, digests: torch.Tensor,
+                  cap_height: int, hasher) -> list:
+    """One MerkleTree a proof over leaves [B, N, L] and their digests
+    [B N, 4] in leaf order, proof-major: each binary run of proofs is one
+    call of the tree entry at cap height cap_height + log2(run), and a
+    proof's layers are its contiguous slice of each level."""
+    B, N = leaves.shape[:2]
+    trees, start = [], 0
+    for run in _binary_runs(B):
+        d = digests[start * N:(start + run) * N]
+        layers = [d] + hasher.merkle_layers(
+            d, cap_height + log2_strict(run))
+        for j in range(run):
+            trees.append(MerkleTree(
+                leaves[start + j], cap_height, hasher,
+                layers=[layer.view(run, -1, layer.shape[-1])[j]
+                        for layer in layers]))
+        start += run
+    return trees
+
+
+def commit_batch(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
+                 hasher, blinding: bool = False,
+                 rng=None) -> BatchCommitment:
+    """Commit the coefficient rows [num, B, n] of B proofs at once; under
+    `blinding` each proof's LDE gets SALT_SIZE rows of N random elements
+    from `rng`, drawn proof after proof."""
+    num, B, n = coeffs.shape
+    lg_n = log2_strict(n)
+    N = n << rate_bits
+    device = coeffs.device
+    lde = ntt.coset_lde(coeffs, rate_bits)                   # [num, B, N]
+    if blinding:
+        rng = np.random.default_rng() if rng is None else rng
+        salt = np.stack([rng.integers(0, ref.ORDER, size=(SALT_SIZE, N),
+                                      dtype=np.uint64) for _ in range(B)],
+                        axis=1)
+        lde = torch.cat([lde, gl.from_u64(salt, device)])
+    width = lde.shape[0]
+    rev = ntt._perm("rev", N, device)
+    leaves = lde.permute(1, 2, 0).index_select(1, rev)       # [B, N, width]
+    if hasher.device:
+        digests = hasher.hash_or_noop_columns(lde.reshape(width, B * N))
+        digests = digests.view(B, N, -1).index_select(1, rev).reshape(
+            B * N, -1)
+        del lde
+        trees = _device_trees(leaves, digests, cap_height, hasher)
+    else:
+        del lde
+        trees = [MerkleTree(leaves[b], cap_height, hasher) for b in range(B)]
+    return BatchCommitment(coeffs, leaves, [
+        PolynomialBatch(coeffs[:, b], tree, lg_n, rate_bits, blinding)
+        for b, tree in enumerate(trees)])

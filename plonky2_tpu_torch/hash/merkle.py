@@ -40,13 +40,11 @@ def build_host_layers(leaves: np.ndarray, cap_height: int, hasher) -> list:
 
 
 class MerkleTree:
-    """leaves: int64 [N, leaf_size], hashed by `hasher`. `leaf_digests`
-    lets a caller that already hashed the leaves (the commit, from the LDE
-    columns) skip that pass; `layers` gives a whole prebuilt tree (tensors
-    for a device hasher, numpy arrays for a host hasher)."""
+    """leaves: int64 [N, leaf_size], hashed by `hasher`. `layers` gives a
+    whole prebuilt tree (tensors for a device hasher, numpy arrays for a
+    host hasher), as a commit builds from the LDE columns."""
 
     def __init__(self, leaves: torch.Tensor, cap_height: int, hasher,
-                 leaf_digests: torch.Tensor | None = None,
                  layers: list | None = None):
         self.lg_n = log2_strict(leaves.shape[0])
         assert cap_height <= self.lg_n
@@ -59,9 +57,8 @@ class MerkleTree:
                 layers = build_host_layers(self.leaves_host(), cap_height,
                                            hasher)
             else:
-                if leaf_digests is None:
-                    leaf_digests = hasher.hash_or_noop(leaves)
-                layers = build_layers(leaf_digests, cap_height, hasher)
+                layers = build_layers(hasher.hash_or_noop(leaves),
+                                      cap_height, hasher)
         self.layers = layers
 
     @property

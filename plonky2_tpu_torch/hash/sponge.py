@@ -39,8 +39,8 @@ def launch_permute(name: str, states: torch.Tensor, plain) -> torch.Tensor:
     backend.require_cuda_int64(states, name)
     out = torch.empty_like(states)
     n = states.shape[0]
-    rc = getattr(backend.lib(), name)(states.data_ptr(), out.data_ptr(), n,
-                                      backend.stream(states))
+    rc = backend.call(name, states, states.data_ptr(), out.data_ptr(), n,
+                      backend.stream(states))
     backend.check(rc, name)
     backend.KERNELS[name].launched((n,))
     return out
@@ -59,8 +59,8 @@ def launch_hash_leaves(name: str, x: torch.Tensor, plain) -> torch.Tensor:
     L, n = x.shape
     out = torch.empty((n, NUM_HASH_OUT_ELTS), dtype=torch.int64,
                       device=x.device)
-    rc = getattr(backend.lib(), name)(x.data_ptr(), out.data_ptr(), L, n,
-                                      backend.stream(x))
+    rc = backend.call(name, x, x.data_ptr(), out.data_ptr(), L, n,
+                      backend.stream(x))
     backend.check(rc, name)
     backend.KERNELS[name].launched((L, n))
     return out
@@ -141,9 +141,9 @@ def launch_merkle_tree(name: str, leaf_digests: torch.Tensor,
     backend.require_cuda_int64(leaf_digests, name)
     buf, spans = _tree_buffer(leaf_digests, cap_height)
     launches = ctypes.c_int(0)
-    rc = getattr(backend.lib(), name)(
-        leaf_digests.data_ptr(), buf.data_ptr(), n, cap_height,
-        backend.stream(leaf_digests), ctypes.byref(launches))
+    rc = backend.call(
+        name, leaf_digests, leaf_digests.data_ptr(), buf.data_ptr(), n,
+        cap_height, backend.stream(leaf_digests), ctypes.byref(launches))
     backend.check(rc, name)
     for _ in range(launches.value):
         backend.KERNELS[name].launched((n, cap_height))

@@ -121,9 +121,12 @@ def _check_size(entry: str, lg_N: int) -> None:
                          f"points, got 2^{lg_N}")
 
 
-def _launch(entry: str, shape: tuple, *args) -> None:
+def _launch(entry: str, shape: tuple, out: torch.Tensor, *args) -> None:
+    """K1's C entry `entry` on `args` (the output's pointer first) on the
+    output's device."""
     launches = ctypes.c_int(0)
-    rc = getattr(backend.lib(), entry)(*args, ctypes.byref(launches))
+    rc = backend.call(entry, out, out.data_ptr(), *args,
+                      ctypes.byref(launches))
     backend.check(rc, entry)
     for _ in range(launches.value):
         backend.KERNELS["ntt"].launched(shape)
@@ -143,7 +146,7 @@ def _forward_rows(x: torch.Tensor, stride: int, batch: int, lead: tuple,
             _shift_powers(shift, n, x.device).data_ptr()
         tw = stage_twiddles(lg_n + rate_bits, False, x.device)
         _launch("ntt_forward", (batch, lg_n, rate_bits, "forward", shift),
-                out.data_ptr(), x.data_ptr(), stride, batch, lg_n, rate_bits,
+                out, x.data_ptr(), stride, batch, lg_n, rate_bits,
                 sp, tw.data_ptr(), backend.stream(out))
     return out
 
@@ -175,7 +178,7 @@ def inverse(values: torch.Tensor, shift: int | None = None) -> torch.Tensor:
     out = torch.empty(values.shape, dtype=torch.int64, device=values.device)
     if batch:
         _launch("ntt_inverse", (batch, lg_n, 0, "inverse", shift),
-                out.data_ptr(), values.data_ptr(), batch, lg_n,
+                out, values.data_ptr(), batch, lg_n,
                 inverse_scale(shift, n, values.device).data_ptr(),
                 stage_twiddles(lg_n, True, values.device).data_ptr(),
                 backend.stream(out))

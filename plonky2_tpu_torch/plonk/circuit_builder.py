@@ -19,6 +19,7 @@ reference's order.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -69,8 +70,6 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
     def __init__(self, config: CircuitConfig | None = None,
                  seed: int | None = None):
         self.config = config or CircuitConfig.standard_recursion_config()
-        if self.config.zero_knowledge:
-            raise NotImplementedError("zero-knowledge circuits are not ported")
         self.gate_instances: list[tuple[Gate, list[int]]] = []
         self.gate_types: dict[str, Gate] = {}
         self.copy_constraints: list[tuple] = []
@@ -275,7 +274,50 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
         """Public inputs are always hashed, even when <= 4."""
         return self.hash_n_to_m_no_pad(inputs, NUM_HASH_OUT_ELTS)
 
+    def _num_blinding_gates(self, degree_estimate: int) -> tuple[int, int]:
+        """(regular, Z) blinding rows of a degree estimate (reference:
+        circuit_builder.rs:839-858, D = 2): the values FRI opens."""
+        d = 2
+        degree_bits = degree_estimate.bit_length() - 1
+        fri = self.config.fri_config
+        arities = [1 << a for a in fri.reduction_strategy.reduction_arity_bits(
+            degree_bits, fri.rate_bits, fri.cap_height, fri.num_query_rounds)]
+        total_folding = sum(a - 1 for a in arities)
+        final_coeffs = degree_estimate // math.prod(arities)
+        fri_openings = fri.num_query_rounds * (
+            1 + d * total_folding + d * final_coeffs)
+        return d + fri_openings, 2 * d + fri_openings
+
+    def _blind(self) -> None:
+        """Zero-knowledge blinding rows (reference: circuit_builder.rs:
+        863-940): a random row for each regular opening, and for each Z
+        opening two rows whose routed wires are random and copy-constrained
+        to each other. The random values come from the builder's `_rng` at
+        witness time."""
+        num_gates = len(self.gate_instances)
+        degree_estimate = 1 << (num_gates - 1).bit_length()
+        while True:
+            regular, z = self._num_blinding_gates(degree_estimate)
+            if num_gates + regular + 2 * z <= degree_estimate:
+                break
+            degree_estimate *= 2
+        nw, nr = self.config.num_wires, self.config.num_routed_wires
+        for _ in range(regular):
+            row = self.add_gate(NoopGate(), [])
+            for w in range(nw):
+                self.generators.append(
+                    RandomValueGenerator(wire(row, w), self._rng))
+        for _ in range(z):
+            g1 = self.add_gate(NoopGate(), [])
+            g2 = self.add_gate(NoopGate(), [])
+            for w in range(nr):
+                self.generators.append(
+                    RandomValueGenerator(wire(g1, w), self._rng))
+                self.connect(wire(g1, w), wire(g2, w))
+
     def blind_and_pad(self, min_degree_bits: int | None = None) -> None:
+        if self.config.zero_knowledge:
+            self._blind()
         n = len(self.gate_instances)
         target = max(1 << (n - 1).bit_length(), 1 << (min_degree_bits or 0))
         for _ in range(target - n):
@@ -319,7 +361,8 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
         self.blind_and_pad(min_degree_bits)
         degree = len(self.gate_instances)
         degree_bits = degree.bit_length() - 1
-        fri_params = config.fri_config.fri_params(degree_bits, False)
+        fri_params = config.fri_config.fri_params(degree_bits,
+                                                  config.zero_knowledge)
         assert fri_params.total_arities <= \
             degree_bits + rate_bits - cap_height, \
             "FRI total reduction arity is too large."

@@ -1,6 +1,7 @@
 """Circuit data containers (reference: plonky2/src/plonk/circuit_data.rs —
 CommonCircuitData:415, ProverOnlyCircuitData:336, VerifierOnlyCircuitData:392,
-CircuitData:158 with prove:186 / verify:195). The constants/sigmas
+CircuitData:158 with prove:186 / verify:195 / compress:204, and the
+Prover-, Verifier- and MockCircuitData splits). The constants/sigmas
 commitment in ProverOnlyData is the port's PolynomialBatch, and a proof runs
 on its device."""
 
@@ -165,11 +166,78 @@ class CircuitData:
     verifier_only: VerifierOnlyData
     common: CommonCircuitData
 
-    def prove(self, inputs, step=None):
-        """`step`: see `plonk/prover.py`."""
+    def prove(self, inputs, step=None, rng=None):
+        """`step` and `rng`: see `plonk/prover.py`."""
         from .prover import prove
-        return prove(self.prover_only, self.common, inputs, step)
+        return prove(self.prover_only, self.common, inputs, step, rng)
 
     def verify(self, proof_with_pis) -> None:
         from .verifier import verify
         verify(proof_with_pis, self.verifier_only, self.common)
+
+    def compress(self, proof_with_pis):
+        """reference: circuit_data.rs:204-218."""
+        from .compressed_proof import compress_proof
+        return compress_proof(proof_with_pis,
+                              self.verifier_only.circuit_digest, self.common)
+
+    def decompress(self, compressed):
+        from .compressed_proof import decompress_proof
+        return decompress_proof(compressed,
+                                self.verifier_only.circuit_digest,
+                                self.common)
+
+    def verify_compressed(self, compressed) -> None:
+        self.verify(self.decompress(compressed))
+
+    # splits (reference: circuit_data.rs:232-249)
+    def prover_data(self) -> "ProverCircuitData":
+        return ProverCircuitData(prover_only=self.prover_only,
+                                 common=self.common)
+
+    def verifier_data(self) -> "VerifierCircuitData":
+        return VerifierCircuitData(verifier_only=self.verifier_only,
+                                   common=self.common)
+
+    def mock(self) -> "MockCircuitData":
+        return MockCircuitData(prover_only=self.prover_only,
+                               common=self.common)
+
+
+@dataclasses.dataclass
+class ProverCircuitData:
+    """The prover's split (reference: circuit_data.rs:253-292)."""
+    prover_only: ProverOnlyData
+    common: CommonCircuitData
+
+    def prove(self, inputs, step=None, rng=None):
+        from .prover import prove
+        return prove(self.prover_only, self.common, inputs, step, rng)
+
+
+@dataclasses.dataclass
+class VerifierCircuitData:
+    """The verifier's split (reference: circuit_data.rs:296-332)."""
+    verifier_only: VerifierOnlyData
+    common: CommonCircuitData
+
+    def verify(self, proof_with_pis) -> None:
+        from .verifier import verify
+        verify(proof_with_pis, self.verifier_only, self.common)
+
+    def verify_compressed(self, compressed) -> None:
+        from .compressed_proof import decompress_proof
+        self.verify(decompress_proof(
+            compressed, self.verifier_only.circuit_digest, self.common))
+
+
+@dataclasses.dataclass
+class MockCircuitData:
+    """Witness generation without proving (reference:
+    circuit_data.rs:142-155)."""
+    prover_only: ProverOnlyData
+    common: CommonCircuitData
+
+    def generate_witness(self, inputs):
+        from ..iop.generator import generate_partial_witness
+        return generate_partial_witness(inputs, self.prover_only, self.common)

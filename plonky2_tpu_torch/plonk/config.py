@@ -1,4 +1,4 @@
-"""Circuit configuration (reference: plonky2/src/plonk/circuit_data.rs:59-130)."""
+"""Circuit configuration (reference: plonky2/src/plonk/circuit_data.rs:59-137)."""
 
 from __future__ import annotations
 
@@ -42,3 +42,10 @@ class CircuitConfig:
         """reference: circuit_data.rs:125-130."""
         return dataclasses.replace(CircuitConfig.standard_recursion_config(),
                                    num_wires=234)
+
+    @staticmethod
+    def standard_recursion_zk_config() -> "CircuitConfig":
+        """Blinding rows and salted oracles (reference:
+        circuit_data.rs:132-137)."""
+        return dataclasses.replace(CircuitConfig.standard_recursion_config(),
+                                   zero_knowledge=True)

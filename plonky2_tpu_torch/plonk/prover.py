@@ -6,7 +6,17 @@ exclusive product scan over the rows), round 3 the quotient (every
 constraint over the whole LDE grid, then a coset iNTT), round 4 opens all
 polynomials at zeta and g*zeta, round 5 is FRI. Every tensor lives on the
 device of the circuit's committed constants; every commit and the FRI trees
-hash with the config's hasher.
+hash with the config's hasher. Under a zero-knowledge config every commit
+but the constants' is salted (`fri/oracle.py`) from the numpy Generator
+`rng` (an unseeded one when None), drawn wires, then Z and the partial
+products, then the quotient.
+
+`prove_many` proves B witnesses of one circuit with a proof axis inside
+every tensor of rounds 1-4 ([rows, B, n] and [rows, B, N]): each commit,
+scan and gate evaluation is one call for the B proofs, and the challengers
+and FRI run a proof at a time. `prove` is its B = 1, and
+`batch_prover.prove_batch` its B > 1. The proofs equal B calls of `prove`
+whenever the witness generators draw the same random values.
 
 `prove(..., step=...)` lets a caller time or profile two steps of a prove:
 `step(name)` returns a context manager, entered around the host witness
@@ -22,9 +32,9 @@ import torch
 
 from ..field import goldilocks as gl
 from ..field import reference as ref
-from ..field.extension import GF2, gf2_powers
+from ..field.extension import gf2_powers
 from ..fri.challenges import observe_openings
-from ..fri.oracle import PolynomialBatch
+from ..fri.oracle import PolynomialBatch, commit_batch
 from ..iop.challenger import Challenger
 from ..iop.generator import generate_partial_witness
 from ..ops import ntt
@@ -32,7 +42,17 @@ from .proof import OpeningSet, Proof, ProofWithPublicInputs
 from .vanishing import evaluate_gate_constraints_rows
 
 
-def prove(prover_data, common, inputs, step=None) -> ProofWithPublicInputs:
+def prove(prover_data, common, inputs, step=None,
+          rng=None) -> ProofWithPublicInputs:
+    """One proof; `rng`: the salts' numpy Generator of a zero-knowledge
+    config."""
+    return prove_many(prover_data, common, [inputs], step, rng)[0]
+
+
+def prove_many(prover_data, common, inputs_list, step=None,
+               rng=None) -> list[ProofWithPublicInputs]:
+    """B proofs of one circuit, one for each PartialWitness of
+    `inputs_list`, their rounds 1-4 on a proof axis."""
     step = step or (lambda name: contextlib.nullcontext())
     config = common.config
     fri_config = config.fri_config
@@ -40,86 +60,116 @@ def prove(prover_data, common, inputs, step=None) -> ProofWithPublicInputs:
     rate_bits, cap_height = fri_config.rate_bits, fri_config.cap_height
     device = prover_data.constants_sigmas_commitment.polynomials.device
     hasher = common.gc.hasher
+    zk = config.zero_knowledge
+    if zk and rng is None:
+        rng = np.random.default_rng()
+
+    def commit(coeffs):
+        return commit_batch(coeffs, rate_bits, cap_height, hasher, zk, rng)
 
     with step("witness fixpoint"):
-        witness = generate_partial_witness(inputs, prover_data, common)
-    public_inputs = [witness.get(t) for t in prover_data.public_inputs]
-    public_inputs_hash = common.gc.hash_public_inputs(public_inputs)
-    wires = gl.from_u64(witness.full_witness(), device)     # [num_wires, n]
+        witnesses = [generate_partial_witness(inputs, prover_data, common)
+                     for inputs in inputs_list]
+    public_inputs = [[w.get(t) for t in prover_data.public_inputs]
+                     for w in witnesses]
+    pi_hashes = [common.gc.hash_public_inputs(pis) for pis in public_inputs]
+    wires = gl.from_u64(np.stack([w.full_witness() for w in witnesses],
+                                 axis=1), device)       # [num_wires, B, n]
 
     # round 1: wires
-    wires_commitment = PolynomialBatch.from_values(wires, rate_bits,
-                                                   cap_height, hasher)
-    challenger = Challenger(hasher)
-    challenger.observe_hash(prover_data.circuit_digest)
-    challenger.observe_hash(public_inputs_hash)
-    challenger.observe_cap(wires_commitment.merkle_tree.cap_digests())
-    betas = challenger.get_n_challenges(nc)
-    gammas = challenger.get_n_challenges(nc)
+    wires_commitment = commit(ntt.ifft(wires))
+    challengers = []
+    for pi_hash, cap in zip(pi_hashes, wires_commitment.caps()):
+        challenger = Challenger(hasher)
+        challenger.observe_hash(prover_data.circuit_digest)
+        challenger.observe_hash(pi_hash)
+        challenger.observe_cap(cap)
+        challengers.append(challenger)
+    betas, gammas = [], []
+    for challenger in challengers:
+        betas.append(challenger.get_n_challenges(nc))
+        gammas.append(challenger.get_n_challenges(nc))
 
     # round 2: Z and partial products
     sigmas = gl.from_u64(prover_data.sigmas, device)
     subgroup = gl.from_u64(prover_data.subgroup, device)
     zs, pps = [], []
     for i in range(nc):
-        z, pp = _partial_products(common, wires, sigmas, subgroup, betas[i],
-                                  gammas[i])
+        z, pp = _partial_products(
+            common, wires, sigmas, subgroup,
+            _per_proof([b[i] for b in betas], device),
+            _per_proof([g[i] for g in gammas], device))
         zs.append(z.unsqueeze(0))
         pps.append(pp)
-    zs_pp_commitment = PolynomialBatch.from_values(torch.cat(zs + pps),
-                                                   rate_bits, cap_height,
-                                                   hasher)
-    challenger.observe_cap(zs_pp_commitment.merkle_tree.cap_digests())
-    alphas = challenger.get_n_challenges(nc)
+    zs_pp_commitment = commit(ntt.ifft(torch.cat(zs + pps)))
+    alphas = []
+    for challenger, cap in zip(challengers, zs_pp_commitment.caps()):
+        challenger.observe_cap(cap)
+        alphas.append(challenger.get_n_challenges(nc))
 
     # round 3: quotient
     with step("round 3"):
         quotient_chunks = compute_quotient_polys(
-            common, prover_data, public_inputs_hash, wires_commitment,
+            common, prover_data, pi_hashes, wires_commitment,
             zs_pp_commitment, betas, gammas, alphas)
-    quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks,
-                                                      rate_bits, cap_height,
-                                                      hasher)
-    challenger.observe_cap(quotient_commitment.merkle_tree.cap_digests())
+    quotient_commitment = commit(quotient_chunks)
 
     # round 4: openings at zeta and g * zeta
-    zeta = challenger.get_extension_challenge()
-    assert ref.ext2_exp(zeta, common.degree) != (1, 0), \
-        "Opening point is in the subgroup"
-    zeta_next = ref.ext2_scalar_mul(
-        zeta, ref.primitive_root_of_unity(common.degree_bits))
-    cs = prover_data.constants_sigmas_commitment.polynomials
-    zs_pp = zs_pp_commitment.polynomials
+    g = ref.primitive_root_of_unity(common.degree_bits)
+    zetas = []
+    for challenger, cap in zip(challengers, quotient_commitment.caps()):
+        challenger.observe_cap(cap)
+        zeta = challenger.get_extension_challenge()
+        assert ref.ext2_exp(zeta, common.degree) != (1, 0), \
+            "Opening point is in the subgroup"
+        zetas.append(zeta)
+    zeta_nexts = [ref.ext2_scalar_mul(z, g) for z in zetas]
+    cs = prover_data.constants_sigmas_commitment
     cs_e, w_e, zp_e, q_e = (
-        _eval_at(p, zeta) for p in (cs, wires_commitment.polynomials, zs_pp,
-                                    quotient_commitment.polynomials))
-    zp_next = _eval_at(zs_pp, zeta_next)
-    openings = OpeningSet(
-        constants=[cs_e[j] for j in common.constants_range],
-        plonk_sigmas=[cs_e[j] for j in common.sigmas_range],
-        wires=w_e,
-        plonk_zs=[zp_e[j] for j in common.zs_range],
-        plonk_zs_next=[zp_next[j] for j in common.zs_range],
-        partial_products=[zp_e[j] for j in common.partial_products_range],
-        quotient_polys=q_e,
-    )
-    observe_openings(challenger, openings.to_fri_openings())
+        _eval_at_points(p, zetas)
+        for p in (cs.polynomials, wires_commitment.coeffs,
+                  zs_pp_commitment.coeffs, quotient_commitment.coeffs))
+    zp_next = _eval_at_points(zs_pp_commitment.coeffs, zeta_nexts)
 
-    # round 5: FRI
-    oracles = [prover_data.constants_sigmas_commitment, wires_commitment,
-               zs_pp_commitment, quotient_commitment]
-    opening_proof = PolynomialBatch.prove_openings(
-        common.get_fri_instance(zeta), oracles, challenger, common.fri_params)
+    proofs = []
+    for b, challenger in enumerate(challengers):
+        openings = OpeningSet(
+            constants=[cs_e[b][j] for j in common.constants_range],
+            plonk_sigmas=[cs_e[b][j] for j in common.sigmas_range],
+            wires=w_e[b],
+            plonk_zs=[zp_e[b][j] for j in common.zs_range],
+            plonk_zs_next=[zp_next[b][j] for j in common.zs_range],
+            partial_products=[zp_e[b][j]
+                              for j in common.partial_products_range],
+            quotient_polys=q_e[b],
+        )
+        observe_openings(challenger, openings.to_fri_openings())
 
-    proof = Proof(
-        wires_cap=wires_commitment.merkle_tree.cap_digests(),
-        plonk_zs_partial_products_cap=zs_pp_commitment.merkle_tree
-        .cap_digests(),
-        quotient_polys_cap=quotient_commitment.merkle_tree.cap_digests(),
-        openings=openings,
-        opening_proof=opening_proof,
-    )
-    return ProofWithPublicInputs(proof=proof, public_inputs=public_inputs)
+        # round 5: FRI
+        oracles = [cs, wires_commitment.batches[b],
+                   zs_pp_commitment.batches[b],
+                   quotient_commitment.batches[b]]
+        opening_proof = PolynomialBatch.prove_openings(
+            common.get_fri_instance(zetas[b]), oracles, challenger,
+            common.fri_params)
+        proofs.append(ProofWithPublicInputs(
+            proof=Proof(
+                wires_cap=oracles[1].merkle_tree.cap_digests(),
+                plonk_zs_partial_products_cap=oracles[2].merkle_tree
+                .cap_digests(),
+                quotient_polys_cap=oracles[3].merkle_tree.cap_digests(),
+                openings=openings,
+                opening_proof=opening_proof,
+            ),
+            public_inputs=public_inputs[b]))
+    return proofs
+
+
+def _per_proof(values: list, device) -> torch.Tensor:
+    """One field element a proof -> [B, 1], broadcast over a proof's
+    points."""
+    return gl.from_u64(np.asarray(values, dtype=np.uint64),
+                       device).unsqueeze(1)
 
 
 # elements of the coefficient block `_eval_at` multiplies at once: wider
@@ -129,19 +179,34 @@ EVAL_CHUNK = 1 << 24
 
 def _eval_at(coeffs: torch.Tensor, z) -> list:
     """Every row of coeffs [num, n] evaluated at the extension point z."""
+    return _eval_at_points(coeffs, [z])[0]
+
+
+def _eval_at_points(coeffs: torch.Tensor, zs: list) -> list:
+    """Rows of coeffs [num, n] (shared by the proofs) or [num, B, n] (a
+    row a proof) evaluated at zs, an extension point a proof: B lists of
+    num (c0, c1) pairs."""
     n = coeffs.shape[-1]
-    zp = gf2_powers(z, n, coeffs.device)
-    rows = max(1, EVAL_CHUNK // n)
-    out = []
+    B = len(zs)
+    powers = [gf2_powers(z, n, coeffs.device) for z in zs]
+    zp0 = torch.stack([p.c0 for p in powers])             # [B, n]
+    zp1 = torch.stack([p.c1 for p in powers])
+    if coeffs.dim() == 2:
+        coeffs = coeffs.unsqueeze(1)
+    rows = max(1, EVAL_CHUNK // (n * B))
+    c0, c1 = [], []
     for lo in range(0, coeffs.shape[0], rows):
         c = coeffs[lo:lo + rows]
-        out += GF2(gl.reduce_sum(gl.mul(c, zp.c0), -1),
-                   gl.reduce_sum(gl.mul(c, zp.c1), -1)).to_pairs()
-    return out
+        c0.append(gl.reduce_sum(gl.mul(c, zp0), -1))      # [rows, B]
+        c1.append(gl.reduce_sum(gl.mul(c, zp1), -1))
+    c0 = gl.to_u64(torch.cat(c0))
+    c1 = gl.to_u64(torch.cat(c1))
+    return [[(int(a), int(b)) for a, b in zip(c0[:, j], c1[:, j])]
+            for j in range(B)]
 
 
 def _chunk_products(rows: torch.Tensor, size: int) -> torch.Tensor:
-    """[nr, N] -> [ceil(nr / size), N]: product over each run of `size`
+    """[nr, ...] -> [ceil(nr / size), ...]: product over each run of `size`
     rows, the last run ragged (reference: util/partial_products.rs)."""
     outs = []
     for lo in range(0, rows.shape[0], size):
@@ -152,17 +217,17 @@ def _chunk_products(rows: torch.Tensor, size: int) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def _partial_products(common, wires, sigmas, subgroup, beta: int,
-                      gamma: int):
-    """Z (exclusive running product of the row quotients) and the partial
-    products of each chunk, [num_partial_products, n]."""
+def _partial_products(common, wires, sigmas, subgroup, beta, gamma):
+    """Z (exclusive running product of the row quotients) [B, n] and the
+    partial products of each chunk, [num_partial_products, B, n], of wires
+    [num_wires, B, n] under each proof's beta and gamma [B, 1]."""
     nr = common.config.num_routed_wires
     routed = wires[:nr]
     k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
                     wires.device).unsqueeze(1)
-    numer = gl.add_const(gl.add(routed, gl.mul_const(gl.mul(k, subgroup),
-                                                     beta)), gamma)
-    denom = gl.add_const(gl.add(routed, gl.mul_const(sigmas, beta)), gamma)
+    s_id = gl.mul(k, subgroup).unsqueeze(1)               # [nr, 1, n]
+    numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
+    denom = gl.add(gl.add(routed, gl.mul(sigmas.unsqueeze(1), beta)), gamma)
     cp = _chunk_products(gl.mul(numer, gl.inverse(denom)),
                          common.quotient_degree_factor)
     row_prod = cp[0]
@@ -176,25 +241,32 @@ def _partial_products(common, wires, sigmas, subgroup, beta: int,
     return z, torch.stack(pps)
 
 
-def compute_quotient_polys(common, prover_data, public_inputs_hash,
-                           wires_commitment, zs_pp_commitment, betas, gammas,
+# grid points (proofs x LDE points) of one round-3 pass: a batch past it is
+# evaluated in groups of proofs, which bounds the temporaries of the gate
+# constraints and the permutation terms
+ROUND3_POINTS = 1 << 21
+
+
+def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
+                           zs_pp_commitment, betas, gammas,
                            alphas) -> torch.Tensor:
-    """[num_challenges * quotient_degree_factor, degree] coefficient chunks
-    (reference: prover.rs:600-744)."""
+    """[num_challenges * quotient_degree_factor, B, degree] coefficient
+    chunks of each proof (reference: prover.rs:600-744); pi_hashes,
+    betas, gammas and alphas hold one entry a proof, and the commitments
+    are BatchCommitments."""
     qdf = common.quotient_degree_factor
     qdb = (qdf - 1).bit_length()
     rate_bits = common.config.fri_config.rate_bits
     assert qdb <= rate_bits, "constraint degree above rate unsupported"
     step = 1 << (rate_bits - qdb)
-    next_step = 1 << qdb
     degree = common.degree
     N = degree << qdb
     nc = common.config.num_challenges
-    nr = common.config.num_routed_wires
+    B = len(pi_hashes)
     g_shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
 
     cs_lde = prover_data.constants_sigmas_commitment.natural_lde(step)
-    wires_lde = wires_commitment.natural_lde(step)
+    wires_lde = wires_commitment.natural_lde(step)          # [W, B, N]
     zs_pp_lde = zs_pp_commitment.natural_lde(step)
     device = wires_lde.device
 
@@ -204,39 +276,69 @@ def compute_quotient_polys(common, prover_data, public_inputs_hash,
     g_pow_n = ref.exp(g_shift, degree)
     v = ref.primitive_root_of_unity(qdb)
     zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
-          for i in range(next_step)]
+          for i in range(1 << qdb)]
     zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
-                       device).repeat(N // next_step)
+                       device).repeat(N >> qdb)
     zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
                                     dtype=np.uint64),
-                         device).repeat(N // next_step)
+                         device).repeat(N >> qdb)
     l_0_x = gl.mul(zh_t, gl.inverse(gl.mul_const(
         gl.sub(x, gl.const(1, device)), degree % ref.ORDER)))
-
-    consts_rows = cs_lde[:common.num_constants]
-    sigmas_rows = cs_lde[common.num_constants:]
-    next_zs_pp = torch.roll(zs_pp_lde, -next_step, dims=-1)
-    pi_rows = gl.from_u64(np.asarray(public_inputs_hash, dtype=np.uint64),
-                          device).unsqueeze(1).expand(4, N)
-    constraint_rows = evaluate_gate_constraints_rows(
-        common, consts_rows, wires_lde, pi_rows)
-
-    routed = wires_lde[:nr]
     k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
                     device).unsqueeze(1)
-    s_id = gl.mul(k, x)
+    consts = (x, zh_inv, l_0_x, gl.mul(k, x).unsqueeze(1))
+
+    per = max(1, ROUND3_POINTS // N)
+    values = torch.cat([
+        _quotient_values(common, consts, cs_lde, wires_lde[:, lo:lo + per],
+                         zs_pp_lde[:, lo:lo + per], pi_hashes[lo:lo + per],
+                         betas[lo:lo + per], gammas[lo:lo + per],
+                         alphas[lo:lo + per])
+        for lo in range(0, B, per)], dim=1)                 # [nc, B, N]
+    coeffs = ntt.coset_ifft(values, shift=g_shift)[..., :qdf * degree]
+    return coeffs.reshape(nc, B, qdf, degree).permute(0, 2, 1, 3).reshape(
+        nc * qdf, B, degree).contiguous()
+
+
+def _quotient_values(common, consts, cs_lde, wires_lde, zs_pp_lde, pi_hashes,
+                     betas, gammas, alphas) -> torch.Tensor:
+    """The vanishing values over the grid divided by Z_H, [nc, B, N], of
+    the B proofs of wires_lde [W, B, N] and zs_pp_lde [Z, B, N]."""
+    x, zh_inv, l_0_x, s_id = consts
+    qdb = (common.quotient_degree_factor - 1).bit_length()
+    next_step = 1 << qdb
+    nc = common.config.num_challenges
+    nr = common.config.num_routed_wires
+    qdf = common.quotient_degree_factor
+    B, N = wires_lde.shape[1:]
+    device = wires_lde.device
+
+    def grid(rows):
+        """[r, B, N] -> [r, B N], the B proofs' points side by side."""
+        return rows.reshape(rows.shape[0], B * N)
+
+    consts_rows = cs_lde[:common.num_constants].unsqueeze(1).expand(
+        -1, B, -1)
+    sigmas_rows = cs_lde[common.num_constants:].unsqueeze(1)
+    next_zs_pp = torch.roll(zs_pp_lde, -next_step, dims=-1)
+    pi_rows = gl.from_u64(np.asarray(pi_hashes, dtype=np.uint64).T,
+                          device).unsqueeze(-1).expand(-1, -1, N)
+    constraint_rows = evaluate_gate_constraints_rows(
+        common, grid(consts_rows), grid(wires_lde), grid(pi_rows)).view(
+            -1, B, N)
+
+    routed = wires_lde[:nr]
     one = gl.const(1, device)
     pp_lo = common.partial_products_range.start
     num_prods = common.num_partial_products
     z1_terms, pp_terms = [], []
     for i in range(nc):
+        beta = _per_proof([b[i] for b in betas], device)
+        gamma = _per_proof([g[i] for g in gammas], device)
         z_x, z_gx = zs_pp_lde[i], next_zs_pp[i]
         z1_terms.append(gl.mul(l_0_x, gl.sub(z_x, one)))
-        numer = gl.add_const(gl.add(routed, gl.mul_const(s_id, betas[i])),
-                             gammas[i])
-        denom = gl.add_const(gl.add(routed, gl.mul_const(sigmas_rows,
-                                                          betas[i])),
-                             gammas[i])
+        numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
+        denom = gl.add(gl.add(routed, gl.mul(sigmas_rows, beta)), gamma)
         nprod = _chunk_products(numer, qdf)
         dprod = _chunk_products(denom, qdf)
         pps = zs_pp_lde[pp_lo + i * num_prods:pp_lo + (i + 1) * num_prods]
@@ -247,7 +349,7 @@ def compute_quotient_polys(common, prover_data, public_inputs_hash,
 
     values = []
     for i in range(nc):
-        apow = gl.powers(alphas[i], terms.shape[0], device).unsqueeze(1)
+        apow = torch.stack([gl.powers(a[i], terms.shape[0], device)
+                            for a in alphas], dim=1).unsqueeze(-1)
         values.append(gl.mul(gl.reduce_sum(gl.mul(terms, apow), 0), zh_inv))
-    coeffs = ntt.coset_ifft(torch.stack(values), shift=g_shift)
-    return coeffs[:, :qdf * degree].reshape(nc * qdf, degree)
+    return torch.stack(values)

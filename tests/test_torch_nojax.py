@@ -1,10 +1,12 @@
 """The port stands alone: in a subprocess where `import jax` and `import
 plonky2_tpu` both fail, import plonky2_tpu_torch, then build, prove and
-verify fib(21) on the CPU under each of the four hasher configs, and
-FibonacciStark at 2^5 with the port's starky, and check that
-no module of JAX or of the JAX package was loaded. An AST scan checks that
-no module of the port, chip_smoke.py, the gadget and STARK circuits it proves
-(tests/gadget_circuits.py, tests/stark_circuits.py), the port's kernel probe
+verify fib(21) on the CPU under each of the four hasher configs,
+FibonacciStark at 2^5 with the port's starky, and a batch prove, a
+compression, a circuit load and a zero-knowledge prove, and check that no
+module of JAX or of the JAX package was loaded. An AST scan checks that
+no module of the port, chip_smoke.py, the gadget, STARK and service
+circuits it proves (tests/gadget_circuits.py, tests/stark_circuits.py,
+tests/service_circuits.py), the port's kernel probe
 (scripts/torch_poseidon_probe.py) or its wrap profile
 (scripts/torch_wrap_profile.py) imports either. This is what
 lets chip_smoke.py run on a machine with no JAX."""
@@ -107,6 +109,58 @@ def test_port_proves_a_stark_with_jax_blocked():
     assert "NOJAX_OK" in proc.stdout
 
 
+SERVICE_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["plonky2_tpu"] = None
+sys.path.insert(0, "tests")
+import numpy as np
+import torch
+import service_circuits as sc
+torch.set_num_threads(1)   # the test workers share the cores
+from plonky2_tpu_torch.plonk.batch_prover import prove_batch
+from plonky2_tpu_torch.utils import circuit_serialization as cs
+from plonky2_tpu_torch.utils import serialization as ser
+
+P = "plonky2_tpu_torch"
+builder, inputs = sc.fib(P, 20, seed=3)
+data = builder.build(device="cpu")
+proofs = prove_batch(data.prover_only, data.common,
+                     [inputs(0, 1), inputs(1, 1)])
+for p in proofs:
+    data.verify(p)
+assert [p.public_inputs[2] for p in proofs] == [10946, 17711]
+raw = ser.serialize_compressed_proof_with_pis(data.compress(proofs[0]),
+                                              data.common)
+data.verify_compressed(ser.deserialize_compressed_proof_with_pis(
+    raw, data.common))
+loaded = cs.deserialize_circuit_data(cs.serialize_circuit_data(data),
+                                     device="cpu")
+data.verify(loaded.prove(inputs(0, 1)))
+builder, inputs = sc.zk_fib(P, query_rounds=1)
+zk = builder.build(device="cpu")
+proof = zk.prove(inputs(0, 1), rng=np.random.default_rng(1))
+zk.verify(proof)
+assert zk.common.fri_params.hiding
+loaded = [m for m, mod in sys.modules.items()
+          if m.split(".")[0] in ("jax", "jaxlib", "plonky2_tpu")
+          and mod is not None]
+assert not loaded, loaded
+print("NOJAX_OK")
+"""
+
+
+def test_port_serves_proofs_with_jax_blocked():
+    """A batch prove, a compression, a circuit saved and loaded and a
+    zero-knowledge prove (tests/service_circuits.py) by the port alone."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SERVICE_SCRIPT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
 def _imported_roots(path):
     """Top-level package of every absolute import in a Python source."""
     with open(path) as f:
@@ -123,6 +177,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "gadget_circuits.py"),
              os.path.join(ROOT, "tests", "stark_circuits.py"),
+             os.path.join(ROOT, "tests", "service_circuits.py"),
              os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
              os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
@@ -181,6 +236,15 @@ STARKY_MODULES = [
     "permutation_stark", "lookup", "cross_table_lookup", "prover",
     "verifier", "recursive_verifier", "stark_testing")]
 
+# the proving-service surface: batches, compression, circuit files
+SERVICE_MODULES = [
+    "plonky2_tpu_torch.plonk.batch_prover",
+    "plonky2_tpu_torch.plonk.compressed_proof",
+    "plonky2_tpu_torch.fri.compressed",
+    "plonky2_tpu_torch.hash.path_compression",
+    "plonky2_tpu_torch.utils.circuit_serialization",
+]
+
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -205,7 +269,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
     listed = (RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
-              + STARKY_MODULES)
+              + STARKY_MODULES + SERVICE_MODULES)
     assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
