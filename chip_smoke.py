@@ -116,8 +116,27 @@ Phases, each of which raises on failure:
      the card (its constants recommitted through K1, K3 and K2): the loaded
      prover, handed the original's random stream, proves the original's
      bytes, and the verifier data read from its own blob verifies them;
+  9k. mesh-prove: on a one-rank NCCL process group (tcp on a free
+     127.0.0.1 port, destroyed after the phase; NCCL takes one rank a
+     card, so the collectives between ranks are tested on CPU ranks), the
+     dummy-2^14 circuit of phase 5 and the starky-fib system proved twice
+     serially and twice under prover_mesh(make_mesh()), every proof equal
+     (the builder's random stream rewound before each PLONK prove),
+     seconds and peak memory of both ways; commit_sharded_2d of [135, 2^14]
+     at rate 3 and cap 4 on a (1, 1) mesh equal to commit_batch;
+  9l. four-step-lde: parallel/ntt_sharded.py coset_lde_large of one
+     polynomial of 2^24 coefficients at rate 3 (2^27 points, past K1's
+     2^24) on a one-rank mesh, cold and warm, equal at 64 seeded points to
+     direct evaluation on the card, each step timed; 2^21 -> 2^24 equal to
+     K1's direct coset LDE and to forward_plain over its whole output;
+  9m. merkle-update: a 2^17-leaf tree of 135-element leaves at cap 4
+     updated in place (one leaf, then 200 across a subtree boundary),
+     every layer equal to a rebuild, update and rebuild ms;
+  9n. context and circom, on the host: the fib100-wrap builder's gate
+     report, and the exported vanishing verifier (circom) evaluated on
+     the fib100 proof: accepted, a tampered opening rejected;
   10. every kernel against its plain PyTorch version on the card, at every
-     shape phases 3, 5-9, 9a-9c, 9e-9h and 9j launched it at, and K7 at
+     shape phases 3, 5-9, 9a-9c, 9e-9h and 9j-9m launched it at, and K7 at
      zk-fib's salted leaf widths as well (tolerance:
      bit-exact), over full outputs, except where the plain version would
      take tens of seconds: K1 above 2^25 output elements on a seeded sample
@@ -147,7 +166,7 @@ Phases, each of which raises on failure:
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
 The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c,
-9e-9h and 9j (6a's three drives included) and
+9e-9h and 9j-9m (6a's three drives included) and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -2109,6 +2128,367 @@ def pow_stress(device):
         f"host permutations)")
 
 
+# ---------------------------------------------------------------------------
+# The multi-device prover on a one-rank mesh, the four-step LDE past K1's
+# 2^24 points, mutable trees, context reports and the circom verifier
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _nccl_world(device):
+    """A one-rank NCCL process group on `device` for the phase inside, on
+    a free localhost port; destroyed after it. NCCL takes one rank a card,
+    so the collectives between ranks are tested on CPU ranks over gloo."""
+    import socket
+
+    import torch.distributed as dist
+    from plonky2_tpu_torch.parallel.multihost import init_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(device)
+    init_multihost(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _kernel_shapes() -> dict:
+    from plonky2_tpu_torch import backend
+    return {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
+
+
+def _read_counts(name: str, kernels: tuple, before_last: dict):
+    """(launches, shapes, shapes of the last call) after a phase's main
+    path; fails if a kernel of `kernels` never launched."""
+    from plonky2_tpu_torch import backend
+    launches = {k.name: k.launches for k in backend.KERNELS.values()}
+    shapes = _kernel_shapes()
+    last = {k: {s: n - before_last[k].get(s, 0) for s, n in v.items()
+                if n > before_last[k].get(s, 0)} for k, v in shapes.items()}
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched by the main "
+                             f"path: {missing}")
+    log(f"{name}: launches {launches}")
+    return launches, shapes, last
+
+
+def _timed_s(device, fn):
+    """(output, seconds, peak allocated bytes) of one call."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(device))
+
+
+@phase("mesh-prove")
+def mesh_prove(device, dummy, stark, stark_proof):
+    """The dummy-2^14 circuit of phase 5 and the starky-fib system proved
+    twice serially and twice under prover_mesh(make_mesh()) on a one-rank
+    NCCL mesh, all byte-equal (the builder's random stream rewound before
+    each PLONK prove; the STARK proofs pickled, and equal to starky-fib's
+    proof); cold and warm seconds and peak memory of both ways; and
+    commit_sharded_2d on a (1, 1) mesh at [135, 2^14], rate 3, cap 4,
+    against commit_batch. The counts cover the 2-D commit and the mesh
+    proves; the last call is a warm dummy-2^14 prove."""
+    import pickle
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.fri.oracle import commit_batch
+    from plonky2_tpu_torch.hash.hashers import POSEIDON
+    from plonky2_tpu_torch.parallel import sharding
+    from plonky2_tpu_torch.recursion.dummy import dummy_witness
+    from plonky2_tpu_torch.starky.prover import prove as stark_prove
+    from plonky2_tpu_torch.starky.verifier import verify_stark_proof
+    import stark_circuits as circuits
+
+    witness = dummy_witness(dummy.prover_only.public_inputs, {0: 42})
+    rng = _builder_rng(dummy)
+    start = copy.deepcopy(rng.bit_generator.state)
+
+    def prove_dummy():
+        rng.bit_generator.state = copy.deepcopy(start)
+        return dummy.prove(witness)
+
+    config = _stark_config()
+    _, trace, pis = circuits.fibonacci(PORT, STARK_ROWS)
+    # the 2-D commit's reference, kept on the host
+    coeffs = gl.from_u64(np.random.default_rng(23).integers(
+        0, P, size=(135, 1 << 14), dtype=np.uint64), device)
+    tree = commit_batch(coeffs.unsqueeze(1), 3, 4,
+                        POSEIDON).batches[0].merkle_tree
+    want = (tree.leaves_host(), [gl.to_u64(x) for x in tree.layers])
+    del tree
+
+    def prove_stark():
+        return stark_prove(stark, config, trace, pis, device=device)
+    serial = {"dummy-2^14": [_timed_s(device, prove_dummy)
+                             for _ in range(2)],
+              "starky-fib": [_timed_s(device, prove_stark)
+                             for _ in range(2)]}
+    with _nccl_world(device):
+        mesh = sharding.make_mesh()
+        log(f"mesh-prove: {mesh}, backend "
+            f"{torch.distributed.get_backend()}")
+        torch.cuda.synchronize(device)
+        backend.reset_counts()
+        mesh2d = init_device_mesh("cuda", (1, 1),
+                                  mesh_dim_names=("col", "x"))
+        # the group's first collectives: the communicator starts here
+        (leaves, layers), t_2d, _ = _timed_s(
+            device, lambda: sharding.commit_sharded_2d(mesh2d, coeffs, 3, 4))
+        same = (np.array_equal(gl.to_u64(leaves), want[0])
+                and len(layers) == len(want[1])
+                and all(np.array_equal(gl.to_u64(a), b)
+                        for a, b in zip(layers, want[1])))
+        del leaves, layers     # out of the proves' peak memory
+        meshed = {}
+        with sharding.prover_mesh(mesh):
+            meshed["starky-fib"] = [_timed_s(device, prove_stark)
+                                    for _ in range(2)]
+            meshed["dummy-2^14"] = [_timed_s(device, prove_dummy)]
+            before = _kernel_shapes()     # the last call: a warm prove
+            meshed["dummy-2^14"].append(_timed_s(device, prove_dummy))
+        run = _read_counts("mesh-prove", POSEIDON_PATH, before)
+    if not same:
+        raise AssertionError("mesh-prove: commit_sharded_2d on the (1, 1) "
+                             "mesh differs from commit_batch")
+    log(f"mesh-prove: commit_sharded_2d [135, 2^14], rate 3, cap 4, on the "
+        f"(1, 1) mesh equals commit_batch (leaves and every layer); "
+        f"{t_2d:.3f} s with the communicator's start")
+    as_bytes = {"dummy-2^14": lambda p: _proof_bytes(dummy, p),
+                "starky-fib": pickle.dumps}
+    if pickle.dumps(serial["starky-fib"][0][0]) != pickle.dumps(stark_proof):
+        raise AssertionError("mesh-prove: starky-fib's proof is not "
+                             "reproducible")
+    for name in serial:
+        got = [as_bytes[name](p) for p, _, _ in serial[name] + meshed[name]]
+        if any(b != got[0] for b in got):
+            raise AssertionError(f"mesh-prove: {name} under the mesh "
+                                 f"differs from its serial proof")
+        (_, s_cold, _), (_, s_warm, s_peak) = serial[name]
+        (_, m_cold, _), (_, m_warm, m_peak) = meshed[name]
+        log(f"mesh-prove: {name} under the one-rank mesh equals its serial "
+            f"proof byte for byte; serial {s_cold:.3f} then {s_warm:.3f} s, "
+            f"peak {s_peak / 2**20:.1f} MiB; mesh {m_cold:.3f} then "
+            f"{m_warm:.3f} s, peak {m_peak / 2**20:.1f} MiB; warm mesh / "
+            f"serial {m_warm / s_warm:.3f}")
+    verify_stark_proof(stark, meshed["starky-fib"][-1][0], config)
+    dummy.verify(meshed["dummy-2^14"][-1][0])
+    return run
+
+
+def _direct_eval(coeffs: torch.Tensor, points: list) -> list:
+    """P(x) = sum_j c_j x^j for each host point x, exactly on the card:
+    x^j = (x^4096)^(j >> 12) x^(j & 4095) from two power tables, one
+    elementwise product with the coefficients and a sum of 32-bit halves
+    (`goldilocks.reduce_sum`, exact up to 2^30 terms)."""
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.field import reference as fref
+
+    n = coeffs.shape[0]
+    lo = 4096
+    hi = n // lo
+    out = []
+    for x in points:
+        pw = gl.mul(gl.powers(fref.exp(x, lo), hi, coeffs.device)
+                    .unsqueeze(1),
+                    gl.powers(x, lo, coeffs.device).unsqueeze(0))
+        out.append(int(gl.to_u64(gl.reduce_sum(gl.mul(coeffs,
+                                                      pw.reshape(-1)))))
+                   % P)
+    return out
+
+
+@phase("four-step-lde")
+def four_step_lde(device):
+    """coset_lde_large of one polynomial of 2^24 coefficients at rate 3 (2^27
+    points, past K1's 2^24) on a one-rank NCCL mesh, cold and warm, held at
+    64 seeded points against direct evaluation; its steps timed (K1 passes,
+    plain multiplies, exchanges); then 2^21 -> 2^24 held over its whole
+    output against K1's direct coset LDE and against forward_plain."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.field import reference as fref
+    from plonky2_tpu_torch.ops import ntt
+    from plonky2_tpu_torch.parallel import ntt_sharded, sharding
+    from plonky2_tpu_torch.utils.timing import TimingTree
+
+    rng = np.random.default_rng(29)
+    big = gl.from_u64(rng.integers(0, P, size=1 << 24, dtype=np.uint64),
+                      device)
+    small = gl.from_u64(rng.integers(0, P, size=1 << 21, dtype=np.uint64),
+                        device)
+    with _nccl_world(device):
+        mesh = sharding.make_mesh()
+        torch.cuda.synchronize(device)
+        backend.reset_counts()
+        got_small = ntt_sharded.coset_lde_large(small, mesh, 3).to_local()
+        timings, results = [], []
+        for _ in range(2):
+            before = _kernel_shapes()
+            timing = TimingTree("four-step", enabled=True,
+                                sync=lambda: torch.cuda.synchronize(device))
+            out, seconds, peak = _timed_s(device, lambda: (
+                ntt_sharded.coset_lde_large(big, mesh, 3, timing=timing)
+                .to_local()))
+            timings.append((seconds, peak, timing.seconds()))
+            results.append(out)
+            del out
+        run = _read_counts("four-step-lde", ("ntt",), before)
+    out = results[-1]
+    if not torch.equal(results[0], out):
+        raise AssertionError("four-step-lde: two runs differ")
+    del results
+    N = 1 << 27
+    idx = np.sort(rng.choice(N, 64, replace=False))
+    w = fref.primitive_root_of_unity(27)
+    g = fref.MULTIPLICATIVE_GROUP_GENERATOR
+    want = _direct_eval(big, [fref.mul(g, fref.exp(w, int(i))) for i in idx])
+    got = [int(v) for v in gl.to_u64(out[torch.as_tensor(idx,
+                                                         device=device)])]
+    if got != want:
+        raise AssertionError("four-step-lde: 2^27 points differ from "
+                             "direct evaluation")
+    log("four-step-lde: 2^24 -> 2^27 equals direct evaluation at 64 seeded "
+        "points")
+    for i, (seconds, peak, steps) in enumerate(timings):
+        k1 = steps["step 1: K1"] + steps["step 4: K1"]
+        plain = steps["row factor"] + steps["middle twiddles"]
+        xchg = steps["exchange 1"] + steps["exchange 2"]
+        log(f"four-step-lde: {'cold' if i == 0 else 'warm'} 2^24 -> 2^27 "
+            f"{seconds:.3f} s, peak {peak / 2**20:.1f} MiB; K1 passes "
+            f"{k1:.4f} s ({k1 / seconds:.1%}), plain multiplies {plain:.4f} "
+            f"s ({plain / seconds:.1%}), exchanges {xchg:.4f} s "
+            f"({xchg / seconds:.1%}); steps "
+            f"{ {k: round(v, 4) for k, v in steps.items()} }")
+    del out
+    direct = ntt.coset_lde(small.unsqueeze(0), 3)[0]
+    plain = ntt.forward_plain(small.unsqueeze(0), 3,
+                              fref.MULTIPLICATIVE_GROUP_GENERATOR)[0]
+    if not (torch.equal(got_small, direct) and torch.equal(direct, plain)):
+        raise AssertionError("four-step-lde: 2^21 -> 2^24 differs from K1's "
+                             "direct LDE or from forward_plain")
+    log("four-step-lde: 2^21 -> 2^24 equals K1's direct coset LDE and "
+        "forward_plain over all 2^24 points")
+    torch.cuda.empty_cache()
+    return run
+
+
+@phase("merkle-update")
+def merkle_update(device):
+    """A 2^17-leaf tree of 135-element leaves at cap 4 (Poseidon): one leaf
+    changed, then 200 leaves across a cap subtree's boundary; after each,
+    every layer equals a fresh build; update and rebuild ms."""
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.hash.hashers import POSEIDON
+    from plonky2_tpu_torch.hash.merkle import MerkleTree
+
+    rng = np.random.default_rng(31)
+    n, width, cap = 1 << 17, 135, 4
+
+    def rand(*shape):
+        return gl.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64),
+                           device)
+    tree = MerkleTree(rand(n, width), cap, POSEIDON)
+    from plonky2_tpu_torch import backend
+    torch.cuda.synchronize(device)
+    backend.reset_counts()
+    edits = [(12345, 12346), (n // 16 - 100, n // 16 + 100)]
+    times, before = [], None
+    for start, end in edits:
+        new = rand(end - start, width)
+        before = _kernel_shapes()
+        _, t_update, _ = _timed_s(device, lambda: (
+            tree.change_leaf_and_update(new[0], start) if end - start == 1
+            else tree.change_leaves_in_range_and_update(new, start, end)))
+        times.append(t_update)
+    run = _read_counts("merkle-update", ("poseidon_permute",
+                                         "poseidon_hash_leaves"), before)
+    fresh, t_build, _ = _timed_s(
+        device, lambda: MerkleTree(tree.leaves.clone(), cap, POSEIDON))
+    if len(fresh.layers) != len(tree.layers) or not all(
+            torch.equal(a, b) for a, b in zip(tree.layers, fresh.layers)):
+        raise AssertionError("merkle-update: an updated tree differs from "
+                             "a fresh build")
+    log(f"merkle-update: 2^17 x 135 leaves, cap 4: one leaf "
+        f"{times[0] * 1e3:.3f} ms, 200 leaves across a subtree boundary "
+        f"{times[1] * 1e3:.3f} ms, rebuild {t_build * 1e3:.3f} ms; every "
+        f"layer equals the rebuild's")
+    return run
+
+
+@phase("context and circom")
+def context_circom(device, fib):
+    """On the host: print_gate_counts of the fib100-wrap's builder, and the
+    exported vanishing verifier (utils/circom_export.py) evaluated on the
+    card's fib100 proof: accepted, and a tampered wire opening rejected."""
+    from plonky2_tpu_torch.field import reference as fref
+    from plonky2_tpu_torch.plonk.get_challenges import get_challenges
+    from plonky2_tpu_torch.recursion.verifier import wrap_circuit
+    from plonky2_tpu_torch.utils import circom_export as circom
+
+    data, proof = fib
+    builder, _ = wrap_circuit(data)
+    report = builder.print_gate_counts()
+    if "instances of" not in report:
+        raise AssertionError("context and circom: an empty gate report")
+    common = data.common
+    pi_hash = common.gc.hash_public_inputs(proof.public_inputs)
+    ch = get_challenges(proof, pi_hash, data.verifier_only.circuit_digest,
+                        common)
+    zeta = tuple(ch.plonk_zeta)
+    zeta_n = fref.ext2_exp(zeta, common.degree)
+    z_h = fref.ext2_sub(zeta_n, (1, 0))
+    l0 = fref.ext2_mul(z_h, fref.ext2_inverse(fref.ext2_scalar_mul(
+        fref.ext2_sub(zeta, (1, 0)), common.degree % P)))
+    t0 = time.perf_counter()
+    code = circom.export_vanishing_verifier_circom(common)
+    t_export = time.perf_counter() - t0
+    o = proof.proof.openings
+    qdf = common.quotient_degree_factor
+
+    def accepts(wires):
+        outs = circom.evaluate_circom_program(code, {
+            "zeta": zeta, "l0": l0,
+            "constants": [tuple(v) for v in o.constants], "wires": wires,
+            "plonk_zs": [tuple(v) for v in o.plonk_zs],
+            "plonk_zs_next": [tuple(v) for v in o.plonk_zs_next],
+            "partial_products": [tuple(v) for v in o.partial_products],
+            "sigmas": [tuple(v) for v in o.plonk_sigmas],
+            "betas": [(b, 0) for b in ch.plonk_betas],
+            "gammas": [(g, 0) for g in ch.plonk_gammas],
+            "alphas": [(a, 0) for a in ch.plonk_alphas],
+            "public_input_hash": list(pi_hash)})
+        for i in range(common.config.num_challenges):
+            acc = (0, 0)
+            for cq in reversed(o.quotient_polys[i * qdf:(i + 1) * qdf]):
+                acc = fref.ext2_add(fref.ext2_mul(acc, zeta_n), tuple(cq))
+            if tuple(outs[i]) != fref.ext2_mul(z_h, acc):
+                return False
+        return True
+    wires = [tuple(v) for v in o.wires]
+    if not accepts(wires):
+        raise AssertionError("context and circom: the exported verifier "
+                             "refused the fib100 proof")
+    wires[0] = ((wires[0][0] + 1) % P, wires[0][1])
+    if accepts(wires):
+        raise AssertionError("context and circom: the exported verifier "
+                             "accepted a tampered opening")
+    log(f"context and circom: the exported VanishingAtZeta ({len(code)} "
+        f"bytes, {code.count('<==')} assignments, exported in "
+        f"{t_export:.3f} s) accepts the fib100 proof and rejects a tampered"
+        f" wire opening")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2167,6 +2547,10 @@ def main() -> int:
     runs["starky-ctl"] = starky_ctl(device)
     runs["starky-recursive"] = starky_recursive(device, stark, stark_proof)
     runs["starky-poseidon2"] = starky_poseidon2(device)
+    runs["mesh-prove"] = mesh_prove(device, dummy, stark, stark_proof)
+    runs["four-step-lde"] = four_step_lde(device)
+    runs["merkle-update"] = merkle_update(device)
+    context_circom(device, fib)
     table = kernels_vs_plain(device, runs, clock)
     k1_past_2_19(device, table, clock)
     edge_batches(device, table)

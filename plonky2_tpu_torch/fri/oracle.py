@@ -19,6 +19,18 @@ entry of K2 or K6; a B that is no power of two splits into its binary runs,
 a call each). Each proof's layers are views of those. A host hasher
 (Keccak, PoseidonBN128) hashes each proof's leaves on the host
 (`MerkleTree`).
+
+Under `parallel.sharding.prover_mesh(mesh)` a commit runs column-parallel
+over the mesh's ranks (`commit_values_sharded`: each rank's rows through
+K1, one all_to_all to the ranks' leaf blocks, each rank's subtree through
+K3/K7 and K2/K6, one all_gather of the leaves and layers), and every rank
+gets the single-device tree, bit for bit. It shards what the JAX package's
+`PolynomialBatch._sharded` shards, an unblinded commit under a device
+hasher: `from_values` (the iNTT too), `from_coeffs` and `commit_batch` of
+one proof. These keep the single-device commit, as there: a blinded (zero
+knowledge) commit, a host hasher's (Keccak, PoseidonBN128), and
+`commit_batch` of B > 1 proofs (`batch_prover.prove_batch`). That is the
+reference's semantics, not a fallback: the mesh never changes a proof.
 """
 
 from __future__ import annotations
@@ -32,7 +44,10 @@ from ..field.extension import GF2
 from ..hash.merkle import MerkleTree
 from ..iop.challenger import Challenger
 from ..ops import ntt
-from ..ops.polynomial import divide_by_linear, reduce_polys_base
+from ..ops.polynomial import (
+    divide_by_linear, mul_poly_by_x, reduce_polys_base,
+)
+from ..parallel import sharding
 from ..utils.bits import log2_strict, reverse_bits
 from .config import FriParams
 from .prover import fri_proof
@@ -56,6 +71,9 @@ class PolynomialBatch:
     @staticmethod
     def from_values(values: torch.Tensor, rate_bits: int, cap_height: int,
                     hasher) -> "PolynomialBatch":
+        sharded = _sharded(values, rate_bits, cap_height, hasher, True)
+        if sharded is not None:
+            return sharded
         return PolynomialBatch.from_coeffs(ntt.ifft(values), rate_bits,
                                            cap_height, hasher)
 
@@ -112,7 +130,7 @@ class PolynomialBatch:
             final = final * shift + quotient
 
         # multiply by X (the top coefficient is provably zero), then LDE
-        shifted = GF2.cat([GF2.zeros((1,), device), final[:n - 1]])
+        shifted = mul_poly_by_x(final)[:n]
         rate_bits = fri_params.config.rate_bits
         pad = GF2.zeros((n * ((1 << rate_bits) - 1),), device)
         lde_coeffs = GF2.cat([shifted, pad])
@@ -170,13 +188,35 @@ def _device_trees(leaves: torch.Tensor, digests: torch.Tensor,
     return trees
 
 
+def _sharded(x: torch.Tensor, rate_bits: int, cap_height: int, hasher,
+             from_values: bool, blinding: bool = False):
+    """The commit of rows x [num, n] on the active `prover_mesh`, or None
+    where there is none or the commit keeps the single-device path (a
+    blinded commit, a host hasher)."""
+    mesh = sharding.current_prover_mesh()
+    if mesh is None or blinding or not hasher.device:
+        return None
+    coeffs, leaves, layers = sharding.commit_values_sharded(
+        mesh, x, rate_bits, cap_height, from_values, hasher)
+    return PolynomialBatch(coeffs, MerkleTree(leaves, cap_height, hasher,
+                                              layers=layers),
+                           log2_strict(x.shape[1]), rate_bits)
+
+
 def commit_batch(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
                  hasher, blinding: bool = False,
                  rng=None) -> BatchCommitment:
     """Commit the coefficient rows [num, B, n] of B proofs at once; under
     `blinding` each proof's LDE gets SALT_SIZE rows of N random elements
-    from `rng`, drawn proof after proof."""
+    from `rng`, drawn proof after proof. One unblinded proof under a
+    `prover_mesh` commits on the mesh (module docstring)."""
     num, B, n = coeffs.shape
+    if B == 1:
+        batch = _sharded(coeffs[:, 0], rate_bits, cap_height, hasher, False,
+                         blinding)
+        if batch is not None:
+            return BatchCommitment(coeffs, batch.merkle_tree.leaves[None],
+                                   [batch])
     lg_n = log2_strict(n)
     N = n << rate_bits
     device = coeffs.device

@@ -97,6 +97,17 @@ class Gate:
         constants (reference: gate.rs extra_constant_wires)."""
         return []
 
+    def export_circom_verification_code(self) -> str:
+        """okx addition (reference: gate.rs:67): a circom template of the
+        gate's constraints, emitted through `eval_unfiltered`."""
+        from ..utils.circom_export import export_circom_verification_code
+        return export_circom_verification_code(self)
+
+    def export_solidity_verification_code(self) -> str:
+        """okx addition (reference: gate.rs:68)."""
+        from ..utils.circom_export import export_solidity_verification_code
+        return export_solidity_verification_code(self)
+
     def eval_unfiltered(self, alg, local_constants, local_wires,
                         public_inputs_hash):
         """Constraint values over `alg`; constants exclude selector columns."""

@@ -120,6 +120,7 @@ class PoseidonHasher(Hasher):
     permute = staticmethod(ps.permute)
     hash_or_noop_columns = staticmethod(ps.hash_or_noop_columns)
     hash_or_noop = staticmethod(ps.hash_or_noop)
+    compress = staticmethod(ps.compress)
     merkle_layers = staticmethod(ps.merkle_layers)
 
 
@@ -131,6 +132,7 @@ class Poseidon2Hasher(Hasher):
     permute = staticmethod(ps2.permute)
     hash_or_noop_columns = staticmethod(ps2.hash_or_noop_columns)
     hash_or_noop = staticmethod(ps2.hash_or_noop)
+    compress = staticmethod(ps2.compress)
     merkle_layers = staticmethod(ps2.merkle_layers)
 
 

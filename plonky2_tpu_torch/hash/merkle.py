@@ -13,6 +13,16 @@ hasher (`hashers.py`):
 The leaves themselves stay on their device either way (the prover reads the
 LDE back from them). Proofs and rows are gathered where the layers and the
 leaves are, and copied to the host once per call.
+
+The okx fork's mutable trees (reference merkle_tree.rs:638-805):
+`change_leaves_in_range_and_update` writes new leaves and recomputes the
+touched nodes, a window of nodes that halves at each level: on a device
+tree the new leaves' digests through K3/K7 (`hash_or_noop`) and each
+level's touched pairs through the permute entry of K2/K6 (`compress`),
+written in place into the layers, which may be views into a buffer shared
+with other trees (a batch's, `fri/oracle.py`): only this tree's rows
+change; on a host tree the same window through `hash_leaves_np` and
+`compress_np`.
 """
 
 from __future__ import annotations
@@ -80,6 +90,46 @@ class MerkleTree:
         idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
                               device=self.leaves.device)
         return gl.to_u64(self.leaves.index_select(0, idx))
+
+    def prove(self, leaf_index: int) -> np.ndarray:
+        """[depth, digest_width] sibling path of one leaf, leaf level
+        first."""
+        return self.prove_batch([leaf_index])[0]
+
+    def change_leaf_and_update(self, leaf: torch.Tensor,
+                               leaf_index: int) -> None:
+        """Replace one leaf [leaf_size] and recompute its path to the cap
+        (reference: merkle_tree.rs change_leaf_and_update:638-695)."""
+        self.change_leaves_in_range_and_update(leaf.reshape(1, -1),
+                                               leaf_index, leaf_index + 1)
+
+    def change_leaves_in_range_and_update(self, new_leaves: torch.Tensor,
+                                          start: int, end: int) -> None:
+        """Replace leaves [start, end) by new_leaves [end - start,
+        leaf_size] and recompute the nodes above them (reference:
+        merkle_tree.rs change_leaves_in_range_and_update:699-805)."""
+        n, width = self.leaves.shape
+        if not 0 <= start < end <= n:
+            raise ValueError(f"leaf range [{start}, {end}) of {n} leaves")
+        if tuple(new_leaves.shape) != (end - start, width):
+            raise ValueError(f"new leaves {tuple(new_leaves.shape)} for "
+                             f"[{end - start}, {width}]")
+        new_leaves = new_leaves.to(self.leaves.device)
+        self.leaves[start:end] = new_leaves
+        self._leaves_host = None
+        h = self.hasher
+        layers = self.layers
+        if h.device:
+            layers[0][start:end] = h.hash_or_noop(new_leaves)
+        else:
+            layers[0][start:end] = h.hash_leaves_np(gl.to_u64(new_leaves))
+        lo, hi = start, end
+        for level in range(1, len(layers)):
+            lo, hi = lo >> 1, (hi + 1) >> 1
+            pairs = layers[level - 1][2 * lo:2 * hi]
+            layers[level][lo:hi] = (h.compress(pairs[0::2], pairs[1::2])
+                                    if h.device else
+                                    h.compress_np(pairs[0::2], pairs[1::2]))
 
     def prove_batch(self, indices) -> np.ndarray:
         """[k, depth, digest_width] sibling paths, leaf level first: uint64

@@ -64,6 +64,17 @@ class Challenger:
         c = self.get_n_challenges(2)
         return (c[0], c[1])
 
+    def get_n_extension_challenges(self, n: int) -> list[tuple[int, int]]:
+        return [self.get_extension_challenge() for _ in range(n)]
+
+    def compact(self) -> list[int]:
+        """Flush pending inputs and return the sponge state (reference:
+        challenger.rs:147-153)."""
+        if self.input_buffer:
+            self._duplexing()
+        self.output_buffer.clear()
+        return list(self.sponge_state)
+
     def _duplexing(self) -> None:
         assert len(self.input_buffer) <= SPONGE_RATE
         for i, x in enumerate(self.input_buffer):

@@ -27,6 +27,11 @@ class PartialWitness:
         assert prev is None or prev == value, f"conflicting value for {t}"
         self.values[t] = value
 
+    def set_targets(self, pairs) -> None:
+        """set_target for each (target, value) pair."""
+        for t, v in pairs:
+            self.set_target(t, v)
+
 
 class PartitionWitness:
     """Full witness keyed by union-find representative index."""
@@ -43,6 +48,10 @@ class PartitionWitness:
 
     def rep_index(self, t) -> int:
         return self.rep_list[target_index(t, self.num_wires, self.degree)]
+
+    def try_get(self, t) -> int | None:
+        """The target's value, or None while it is unset."""
+        return self.values[self.rep_index(t)]
 
     def is_set(self, t) -> bool:
         return self.values[self.rep_index(t)] is not None

@@ -32,6 +32,12 @@ def divide_by_linear(p: GF2, z) -> GF2:
     return s_shift * zinv_pow
 
 
+def mul_poly_by_x(p: GF2) -> GF2:
+    """Coefficients shifted up by one (times X), one longer: the okx
+    circom-compatible final polynomial (reference: fri/oracle.rs:547)."""
+    return GF2.cat([GF2.zeros((1,), p.c0.device), p])
+
+
 def horner_fold(coeffs: GF2, beta, arity_bits: int) -> GF2:
     """out[j] = sum_i coeffs[j * arity + i] * beta^i."""
     arity = 1 << arity_bits

@@ -18,6 +18,7 @@ reference's order.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -43,6 +44,7 @@ from ..hash.hashers import PoseidonGoldilocksConfig, digest_to_elements
 from ..hash.sponge import NUM_HASH_OUT_ELTS, SPONGE_RATE, W
 from ..iop.generator import ConstantGenerator, RandomValueGenerator
 from ..iop.target import virtual, wire
+from ..utils.context_tree import ContextStack
 from .circuit_data import (
     CircuitData, CommonCircuitData, ProverOnlyData, SelectorsInfo,
     VerifierOnlyData,
@@ -87,6 +89,7 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
         # CommonCircuitData its build must equal
         self.verifier_data_public_input = None
         self.goal_common_data = None
+        self._context_stack = ContextStack()
 
     # -- targets --------------------------------------------------------------
     def add_virtual_target(self):
@@ -106,6 +109,42 @@ class CircuitBuilder(ExtensionGadgets, MiscGadgets, U32Gadgets,
     # -- gates ----------------------------------------------------------------
     def num_gates(self) -> int:
         return len(self.gate_instances)
+
+    # -- context attribution (reference: circuit_builder.rs:681-699,
+    #    util/context_tree.rs; print_gate_counts :1003-1030) ---------------
+    def push_context(self, name: str) -> None:
+        self._context_stack.push(name, self.num_gates())
+
+    def pop_context(self) -> None:
+        self._context_stack.pop(self.num_gates())
+
+    @contextlib.contextmanager
+    def context(self, name: str):
+        """`with builder.context("fri verifier"): ...`, the with_context!
+        macro: the gates added inside count to the scope."""
+        self.push_context(name)
+        try:
+            yield
+        finally:
+            self.pop_context()
+
+    def gate_counts(self) -> dict[str, int]:
+        """Instance count per gate type (reference: print_gate_counts)."""
+        counts: dict[str, int] = {}
+        for gate, _ in self.gate_instances:
+            counts[gate.id()] = counts.get(gate.id(), 0) + 1
+        return counts
+
+    def print_gate_counts(self, min_delta: int = 1) -> str:
+        """Print and return the instances of each gate type, most first,
+        then the scopes owning at least `min_delta` gates."""
+        lines = [f"{n} instances of {gid}"
+                 for gid, n in sorted(self.gate_counts().items(),
+                                      key=lambda kv: -kv[1])]
+        ctx = self._context_stack.root.report(min_delta)
+        report = "\n".join(lines + ([ctx] if ctx else []))
+        print(report)
+        return report
 
     def add_gate(self, gate: Gate, constants: list[int]) -> int:
         assert gate.num_wires() <= self.config.num_wires, \

@@ -15,6 +15,10 @@ def log2_strict(n: int) -> int:
     return k
 
 
+def log2_ceil(n: int) -> int:
+    return (n - 1).bit_length() if n > 1 else 0
+
+
 @lru_cache(maxsize=None)
 def reverse_index_bits_perm(n: int) -> np.ndarray:
     """Gather indices implementing the bit-reversal permutation of size n."""

@@ -50,6 +50,22 @@ class TimingTree:
                 print(f"[timing] {'  ' * self._depth}{dt * 1e3:9.1f} ms  "
                       f"{label}", flush=True)
 
+    def print(self) -> str:
+        """Print and return the closed scopes as a tree, each with its
+        milliseconds, outer scopes before the scopes inside them
+        (reference: timing.rs TimingTree::print)."""
+        pending = []
+        for depth, label, dt in self.records:   # inner scopes close first
+            inner = [p for p in pending if p[0] > depth]
+            pending = [p for p in pending if p[0] <= depth]
+            pending.append((depth, [f"{'  ' * depth}{dt * 1e3:9.1f} ms  "
+                                    f"{label}"] + [line for p in inner
+                                                   for line in p[1]]))
+        lines = [line for p in pending for line in p[1]]
+        text = "\n".join([self.name] + lines)
+        print(text, flush=True)
+        return text
+
     def seconds(self) -> dict:
         """{label: total seconds} over every closed scope."""
         out: dict = {}

@@ -6,9 +6,10 @@ compression, a circuit load and a zero-knowledge prove, and check that no
 module of JAX or of the JAX package was loaded. An AST scan checks that
 no module of the port, chip_smoke.py, the gadget, STARK and service
 circuits it proves (tests/gadget_circuits.py, tests/stark_circuits.py,
-tests/service_circuits.py), the port's kernel probe
-(scripts/torch_poseidon_probe.py) or its wrap profile
-(scripts/torch_wrap_profile.py) imports either. This is what
+tests/service_circuits.py, the mesh worker tests/torch_parallel_worker.py),
+the port's kernel probe (scripts/torch_poseidon_probe.py) or its wrap
+profile (scripts/torch_wrap_profile.py) imports either, and a 2-rank gloo
+commit of the port's `parallel/` runs with both blocked. This is what
 lets chip_smoke.py run on a machine with no JAX."""
 
 import ast
@@ -178,6 +179,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
              os.path.join(ROOT, "tests", "gadget_circuits.py"),
              os.path.join(ROOT, "tests", "stark_circuits.py"),
              os.path.join(ROOT, "tests", "service_circuits.py"),
+             os.path.join(ROOT, "tests", "torch_parallel_worker.py"),
              os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
              os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
@@ -245,6 +247,15 @@ SERVICE_MODULES = [
     "plonky2_tpu_torch.utils.circuit_serialization",
 ]
 
+# the multi-device prover and the last modules of the JAX package
+PARALLEL_MODULES = [
+    "plonky2_tpu_torch.parallel.multihost",
+    "plonky2_tpu_torch.parallel.ntt_sharded",
+    "plonky2_tpu_torch.parallel.sharding",
+    "plonky2_tpu_torch.utils.context_tree",
+    "plonky2_tpu_torch.utils.circom_export",
+]
+
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -269,9 +280,32 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
     listed = (RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
-              + STARKY_MODULES + SERVICE_MODULES)
+              + STARKY_MODULES + SERVICE_MODULES + PARALLEL_MODULES)
     assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))
              for n in ns if n.endswith(".py")}
     assert {m.replace(".", "/") + ".py" for m in listed} <= files
+
+
+def test_port_commits_on_two_gloo_ranks_with_jax_blocked(tmp_path):
+    """tests/torch_parallel_worker.py's `commit` job: two ranks, each with
+    `import jax` and `import plonky2_tpu` failing, commit ten polynomials
+    over a 1-D mesh and hold the tree against the single-device commit."""
+    worker = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "commit", str(r), "2",
+         str(tmp_path / "store"), str(tmp_path)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            proc.kill()
+    for proc, (_, err) in zip(procs, outs):
+        assert proc.returncode == 0, err[-4000:]
+    assert "COMMIT_OK" in outs[0][0]
