@@ -30,8 +30,9 @@ Phases, each of which raises on failure:
      proof, each built, proved cold and twice warm, verified and
      tamper-checked, with its degree, gates, build and prove seconds (the
      warm proves' median and range), the shares of the host witness
-     fixpoint and of round 3 (the quotient), and the peak device memory
-     (phases 3, 5 and 6a-9 log the same);
+     fixpoint and of round 3 (the quotient; the prover's TimingTree scopes
+     "run generators" and "compute quotient polys", synchronized), and the
+     peak device memory (phases 3, 5 and 6a-9 log the same);
   6a. outer-keccak: the fib100-wrap of phase 3 built under
      KeccakGoldilocksConfig, proved cold and once warm, and wrap-2 under
      Keccak (the verifier of wrap-1's Poseidon proof) built and proved once;
@@ -100,6 +101,11 @@ Phases, each of which raises on failure:
      before each, and every batched proof must equal its serial twin byte
      for byte; all verify, one is tampered; seconds, hand-kernel launches
      and aten ops a proof and peak memory, batched and serial;
+  9f'. scopes: dummy-2^14 proved warm by default and under an enabled
+     TimingTree (seconds, equal hand-kernel launches);
+     then one timed warm prove of dummy-2^14 and of the fib100-wrap and a
+     timed B = 4 batch of the dummy: each scope's seconds and share of the
+     prove, the labels those of the JAX package in its order;
   9g. batch-dummy-2^14-poseidon2: the same at B = 2 under Poseidon2;
   9h. zk-fib: fib(31) under standard_recursion_zk_config(), which blinding
      lays out at 2^14: proved cold and warm with unseeded salts (both
@@ -135,8 +141,21 @@ Phases, each of which raises on failure:
   9n. context and circom, on the host: the fib100-wrap builder's gate
      report, and the exported vanishing verifier (circom) evaluated on
      the fib100 proof: accepted, a tampered opening rejected;
+  9o. examples: the seven entry points of plonky2_tpu_torch/examples
+     (`main(argv)`, the card, default sizes, --seed 1234), each printing the
+     JAX example's values and launching K1-K3: fibonacci against
+     tests/golden/fib100_transcript.json, factorial, range_check and
+     square_root against the JAX package's proof bytes
+     (tests/golden/example_<name>.bin), fibonacci_serialization's reloaded
+     circuit proving the original's bytes, batch_prove's four proofs equal
+     to serial proves, bench_recursion's 2^12 dummy proof and its wrap
+     verified;
+  9p. profile: the fibonacci example under PLONKY2_TPU_PROFILE=<temp dir>:
+     its Chrome trace names the prover's eight scopes and holds events of
+     K1's, K2's (both entries) and K3's CUDA functions; the card's busy
+     share inside the prove's scopes;
   10. every kernel against its plain PyTorch version on the card, at every
-     shape phases 3, 5-9, 9a-9c, 9e-9h and 9j-9m launched it at, and K7 at
+     shape phases 3, 5-9, 9a-9c, 9e-9h, 9j-9m and 9o launched it at, and K7 at
      zk-fib's salted leaf widths as well (tolerance:
      bit-exact), over full outputs, except where the plain version would
      take tens of seconds: K1 above 2^25 output elements on a seeded sample
@@ -166,7 +185,7 @@ Phases, each of which raises on failure:
      the host to meet the bound, and for the transcript states and 8 random
      ones of each hasher to be the smallest that does.
 The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c,
-9e-9h and 9j-9m (6a's three drives included) and
+9e-9h, 9j-9m and 9o (6a's three drives included) and
 read just after it; a kernel of a phase's path that it never launched fails
 the phase. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
@@ -466,6 +485,7 @@ def _drive(name: str, device, build, kernels: tuple,
     launches}, {kernel: {shape: launches}} and the last prove's {kernel:
     {shape: launches}}."""
     from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.utils.timing import TimingTree
 
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -473,17 +493,13 @@ def _drive(name: str, device, build, kernels: tuple,
     host_s = {"seconds": 0.0, "permutations": 0}
     marks = []  # host_s after the build and after each prove
 
-    def timer(seconds: dict):
-        """The prover's step hook: the seconds of the host witness fixpoint
-        and of round 3 (the quotient: every gate constraint over the LDE
-        grid), each ending in a synchronize."""
-        @contextlib.contextmanager
-        def step(what):
-            t = time.perf_counter()
-            yield
-            torch.cuda.synchronize(device)
-            seconds[what] = time.perf_counter() - t
-        return step
+    def steps(timing) -> dict:
+        """Two of the prover's TimingTree scopes, each ending in a
+        synchronize: the host witness fixpoint and round 3 (the quotient:
+        every gate constraint over the LDE grid)."""
+        seconds = timing.seconds()
+        return {"witness fixpoint": seconds["run generators"],
+                "round 3": seconds["compute quotient polys"]}
     with _host_hashing(host_s):
         t0 = time.perf_counter()
         data, inputs = build()
@@ -495,11 +511,12 @@ def _drive(name: str, device, build, kernels: tuple,
             before = {k.name: dict(k.shapes)
                       for k in backend.KERNELS.values()}
             pw = inputs(proofs)
-            step_s.append({})
+            timing = TimingTree(name, enabled=True)
             t0 = time.perf_counter()
-            proofs.append(data.prove(pw, timer(step_s[-1])))
+            proofs.append(data.prove(pw, timing))
             torch.cuda.synchronize(device)
             times.append(time.perf_counter() - t0)
+            step_s.append(steps(timing))
             marks.append(dict(host_s))
 
     STEP_SECONDS[name] = step_s
@@ -606,8 +623,15 @@ def _write_proof(file_name: str, data, proof) -> None:
 
 @phase("fib100-wrap")
 def fib100_wrap(device, fib):
-    run, data, (proof, *_) = _drive("fib100-wrap", device,
-                                    _wrap_build(*fib, device), POSEIDON_PATH)
+    """Returns the drive's counts, the wrap's data and its witness
+    function."""
+    made = {}
+
+    def build():
+        made["data"], made["inputs"] = _wrap_build(*fib, device)()
+        return made["data"], made["inputs"]
+    run, data, (proof, *_) = _drive("fib100-wrap", device, build,
+                                    POSEIDON_PATH)
     _write_proof("fib100_wrap_proof.bin", data, proof)
     with open(os.path.join(OUT_DIR, "fib100_wrap_transcript.json"), "w") as f:
         json.dump(_transcript(data, proof), f, indent=1)
@@ -617,7 +641,7 @@ def fib100_wrap(device, fib):
     else:
         log("fib100-wrap: no golden file; proof bytes and transcript "
             "written to chiprun_out/")
-    return run
+    return run, data, made["inputs"]
 
 
 @phase("dummy-2^14")
@@ -1427,8 +1451,7 @@ def _stark_drive(name: str, device, prove, verify, kernels: tuple,
     times, proofs, scopes = [], [], []
     for _ in range(proves):
         before = {k.name: dict(k.shapes) for k in backend.KERNELS.values()}
-        timing = TimingTree(name, enabled=True,
-                            sync=lambda: torch.cuda.synchronize(device))
+        timing = TimingTree(name, enabled=True)
         t0 = time.perf_counter()
         proofs.append(prove(timing))
         torch.cuda.synchronize(device)
@@ -2335,8 +2358,7 @@ def four_step_lde(device):
         timings, results = [], []
         for _ in range(2):
             before = _kernel_shapes()
-            timing = TimingTree("four-step", enabled=True,
-                                sync=lambda: torch.cuda.synchronize(device))
+            timing = TimingTree("four-step", enabled=True)
             out, seconds, peak = _timed_s(device, lambda: (
                 ntt_sharded.coset_lde_large(big, mesh, 3, timing=timing)
                 .to_local()))
@@ -2489,6 +2511,270 @@ def context_circom(device, fib):
         f" wire opening")
 
 
+# the JAX examples' value lines (examples/*.py), by example: what the
+# port's example must print; "{}" is filled with the proof's byte count
+P_FIB100 = functools.reduce(lambda ab, _: (ab[1], (ab[0] + ab[1]) % P),
+                            range(99), (0, 1))[1]
+EXAMPLE_LINES = {
+    "fibonacci": [f"100th Fibonacci number (mod p): {P_FIB100}",
+                  "proof verified"],
+    "factorial": [f"100! (mod p): {math.factorial(100) % P}",
+                  "proof verified"],
+    "range_check": ["value 42 is in [0, 2^6)", "proof verified"],
+    "square_root": [f"proved knowledge of sqrt({8846460 ** 2 % P})",
+                    "serialization roundtrip OK ({} bytes)"],
+}
+
+
+def _example(name: str, argv: list):
+    """plonky2_tpu_torch.examples.<name>.main(argv) with its printed lines
+    captured and logged: (its return value, its lines, {kernel: launches}
+    of the run)."""
+    import importlib
+    import io
+    from plonky2_tpu_torch import backend
+
+    module = importlib.import_module(f"plonky2_tpu_torch.examples.{name}")
+    before = {k.name: k.launches for k in backend.KERNELS.values()}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        made = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k.name: k.launches - before[k.name]
+                for k in backend.KERNELS.values()}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"examples: {name}: | {line}")
+    missing = [k for k in POSEIDON_PATH if launched[k] == 0]
+    if missing:
+        raise AssertionError(f"examples: {name} never launched {missing}")
+    log(f"examples: {' '.join([name] + argv)}: {seconds:.3f} s, launches "
+        f"{ {k: n for k, n in launched.items() if n} }")
+    return made, lines
+
+
+@phase("examples")
+def examples(device):
+    """The seven entry points of plonky2_tpu_torch/examples at their default
+    sizes on the card (--seed 1234 for reproducible bytes): each prints the
+    JAX example's values and launches K1-K3; fibonacci's transcript equals
+    tests/golden/fib100_transcript.json, factorial's, range_check's and
+    square_root's bytes equal tests/golden/example_<name>.bin (the JAX
+    package's proofs, scripts/jax_examples_golden.py); the reloaded circuit
+    of fibonacci_serialization proves the original's bytes; batch_prove's
+    four proofs equal serial proves; bench_recursion's 2^12 inner proof and
+    its wrap verify. The counts cover the seven runs alone: the checks'
+    own proves come after they are read."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.examples._common import fib_circuit
+    from plonky2_tpu_torch.examples.batch_prove import witnesses
+
+    seed = ["--seed", "1234"]
+    names = list(EXAMPLE_LINES) + ["fibonacci_serialization", "batch_prove"]
+    torch.cuda.synchronize(device)
+    backend.reset_counts()
+    made = {name: _example(name, seed) for name in names}
+    before = _kernel_shapes()
+    made["bench_recursion"] = _example("bench_recursion", [])
+    run = _read_counts("examples", POSEIDON_PATH, before)
+    # the checks below prove again: after the counts are read
+    for name, want in EXAMPLE_LINES.items():
+        (data, proof), lines = made[name]
+        raw = _proof_bytes(data, proof)
+        if lines != [line.format(len(raw)) for line in want]:
+            raise AssertionError(f"examples: {name} printed {lines}, the "
+                                 f"JAX example {want}")
+        if name == "fibonacci":
+            _golden("examples: fibonacci", data, proof,
+                    os.path.join(GOLDEN_DIR, "fib100_transcript.json"))
+            continue
+        with open(os.path.join(GOLDEN_DIR, f"example_{name}.bin"),
+                  "rb") as f:
+            if raw != f.read():
+                raise AssertionError(f"examples: {name}'s proof differs "
+                                     f"from the JAX package's")
+        log(f"examples: {name}: {len(raw)} proof bytes equal the JAX "
+            f"package's (degree 2^{data.common.degree_bits})")
+    (data, restored, pw, proof), lines = made["fibonacci_serialization"]
+    if lines[1:] != EXAMPLE_LINES["fibonacci"][:1] + [
+            "proof from reloaded circuit verified"]:
+        raise AssertionError(f"examples: fibonacci_serialization printed "
+                             f"{lines}")
+    if _proof_bytes(restored, proof) != _proof_bytes(data, data.prove(pw)):
+        raise AssertionError("examples: the reloaded circuit's proof "
+                             "differs from the original's")
+    log("examples: fibonacci_serialization: the reloaded circuit proves "
+        "the original's bytes")
+    (data, proofs), lines = made["batch_prove"]
+    if lines[2] != f"fib(100) for (a=0,b=1): {P_FIB100}":
+        raise AssertionError(f"examples: batch_prove printed {lines}")
+    builder, a, b, _ = fib_circuit(1234)
+    serial = builder.build(device=device)
+    if [_proof_bytes(data, p) for p in proofs] != [
+            _proof_bytes(serial, serial.prove(w))
+            for w in witnesses(a, b, len(proofs))]:
+        raise AssertionError("examples: batch_prove's proofs differ from "
+                             "serial proves")
+    log(f"examples: batch_prove: B = {len(proofs)} proofs equal serial "
+        f"proves")
+    (inner, _, outer, wrap_proof), lines = made["bench_recursion"]
+    if lines[-1] != "wrap verified; public inputs [42, 0, 0, 0]" or \
+            inner.common.degree_bits != 12:
+        raise AssertionError(f"examples: bench_recursion printed {lines}")
+    del made
+    torch.cuda.empty_cache()
+    return run
+
+
+def _share_line(name: str, timing, total: float) -> None:
+    """Each top-level scope's seconds and share of a prove of `total`
+    seconds, and the time outside the scopes."""
+    scoped = [(label, dt) for depth, label, dt in timing.records
+              if depth == 0]
+    rest = total - sum(dt for _, dt in scoped)
+    log(f"scopes: {name}: prove {total:.4f} s = "
+        + "; ".join(f"{label} {dt:.4f} s {dt / total:.1%}"
+                    for label, dt in scoped)
+        + f"; outside the scopes {rest:.4f} s {rest / total:.1%}")
+
+
+@phase("scopes")
+def scopes(device, dummy, wrap):
+    """One warm prove of dummy-2^14 and of the fib100-wrap, and one warm
+    prove_batch of four dummy witnesses, each under an enabled TimingTree
+    whose scopes end in a synchronize: every scope's seconds and share of
+    the prove, the labels in the JAX package's order. Before and after the
+    first, dummy-2^14 proved warm by default (a disabled tree): the seconds
+    and hand-kernel launches of both ways."""
+    from plonky2_tpu_torch.plonk.batch_prover import BATCH_SCOPES, prove_batch
+    from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
+    from plonky2_tpu_torch.recursion.dummy import dummy_witness
+    from plonky2_tpu_torch.utils.timing import TimingTree
+
+    pis = dummy.prover_only.public_inputs
+    B = 4
+    cases = [
+        ("dummy-2^14", lambda t: dummy.prove(dummy_witness(pis, {0: 42}), t),
+         list(SERIAL_SCOPES)),
+        ("fib100-wrap", lambda t: wrap[0].prove(wrap[1]([]), t),
+         list(SERIAL_SCOPES)),
+        (f"batch-dummy-2^14 B = {B}", lambda t: prove_batch(
+            dummy.prover_only, dummy.common,
+            [dummy_witness(pis, {0: 42 + i}) for i in range(B)], t),
+         list(BATCH_SCOPES[:-1])
+         + [BATCH_SCOPES[-1].format(b=b) for b in range(B)])]
+    from plonky2_tpu_torch import backend
+
+    def timed(prove, timing):
+        torch.cuda.synchronize(device)
+        k0 = sum(k.launches for k in backend.KERNELS.values())
+        t0 = time.perf_counter()
+        prove(timing)
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0,
+                sum(k.launches for k in backend.KERNELS.values()) - k0)
+    # dummy-2^14 by default (a disabled tree) before and after the first
+    # case's timed prove: what the scopes' synchronizes cost
+    turns = [timed(cases[0][1], None)]
+    for name, prove, labels in cases:
+        timing = TimingTree(name, enabled=True)
+        total, launched = timed(prove, timing)
+        got = [label for depth, label, _ in timing.records if depth == 0]
+        if got != labels:
+            raise AssertionError(f"scopes: {name} recorded {got}")
+        _share_line(name, timing, total)
+        if prove is cases[0][1]:
+            turns += [(total, launched), timed(prove, None)]
+    log(f"scopes: dummy-2^14 warm proves in turn default, timed (a "
+        f"synchronize at each scope's end), default: "
+        f"{', '.join(f'{t:.4f}' for t, _ in turns)} s; hand-kernel "
+        f"launches {[n for _, n in turns]}")
+    if len({n for _, n in turns}) != 1:
+        raise AssertionError("scopes: a timed prove launched other kernels "
+                             "than a default one")
+
+
+def _busy_share(events: list, t0: float, t1: float) -> float:
+    """The share of [t0, t1] (trace microseconds) in which the card ran a
+    kernel, a copy or a fill (the union of their intervals)."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (t1 - t0)
+
+
+# the CUDA functions of K1, K2 (both entries) and K3 under Poseidon, as
+# the profiler names them (the sources' anonymous namespace included)
+_POSEIDON_T = r"<(?:\(anonymous namespace\)::)?Poseidon>"
+TRACE_KERNELS = {"K1 ntt": r"\bntt_(row|tiles|columns)\b",
+                 "K2 permute": r"\bpermute_kernel" + _POSEIDON_T,
+                 "K2 merkle_tree": r"\bmerkle_kernel" + _POSEIDON_T,
+                 "K3 hash_leaves": r"\bhash_leaves(_lanes)?_kernel"
+                                   + _POSEIDON_T}
+
+
+@phase("profile")
+def profile(device):
+    """The fibonacci example (fib(100), seed 1234) under
+    PLONKY2_TPU_PROFILE=<a temp directory>: the default TimingTree of its
+    prove starts torch.profiler, stop_profiler() writes the Chrome trace,
+    which must name all eight scopes and hold events of K1's, K2's and K3's
+    CUDA functions; the card's busy share inside the prove's scopes."""
+    import re
+    import shutil
+    import tempfile
+    from plonky2_tpu_torch.examples import fibonacci
+    from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
+    from plonky2_tpu_torch.utils.timing import stop_profiler
+
+    out_dir = tempfile.mkdtemp(prefix="plonky2_tpu_profile_")
+    os.environ["PLONKY2_TPU_PROFILE"] = out_dir
+    try:
+        try:
+            fibonacci.main(["--seed", "1234"])
+        finally:
+            path = stop_profiler()
+            del os.environ["PLONKY2_TPU_PROFILE"]
+        if path is None:
+            raise AssertionError("profile: no capture started")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") in SERIAL_SCOPES]
+    missing = set(SERIAL_SCOPES) - {e["name"] for e in ranges}
+    if missing:
+        raise AssertionError(f"profile: scopes missing from the trace: "
+                             f"{sorted(missing)}")
+    on_card = {e["name"] for e in events
+               if e.get("cat") == "gpu_user_annotation"}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(1 for e in kernels if re.search(pat, e["name"]))
+              for k, pat in TRACE_KERNELS.items()}
+    if not all(counts.values()):
+        names = sorted({e["name"][:120] for e in kernels})
+        raise AssertionError(f"profile: kernels missing from the trace: "
+                             f"{counts}; its kernels: {names}")
+    t0 = min(e["ts"] for e in ranges)
+    t1 = max(e["ts"] + e["dur"] for e in ranges)
+    busy = _busy_share(events, t0, t1)
+    log(f"profile: trace of {len(events)} events ({size} bytes): all eight "
+        f"scopes, {len(on_card & set(SERIAL_SCOPES))} of them as ranges on "
+        f"the card's timeline; {len(kernels)} kernel events, hand kernels "
+        f"{counts}; the prove's scopes span {(t1 - t0) / 1e3:.3f} ms, the "
+        f"card busy {busy:.1%} of it")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2514,7 +2800,8 @@ def main() -> int:
             log(line.strip())
 
     fib = fib100(device)
-    runs = {"fib100-wrap": fib100_wrap(device, fib)}
+    runs = {}
+    runs["fib100-wrap"], *fib_wrap = fib100_wrap(device, fib)
     fib21_poseidon2(device)
     fib21_keccak(device)
     fib21_poseidon_bn128(device)
@@ -2529,6 +2816,8 @@ def main() -> int:
     runs["conditional"] = conditional(device)
     runs["dummy-2^14-poseidon2"] = dummy_2_14_poseidon2(device)
     runs["batch-dummy-2^14"] = batch_dummy_2_14(device, dummy)[0]
+    scopes(device, dummy, fib_wrap)
+    del fib_wrap
     runs["batch-dummy-2^14-poseidon2"] = batch_dummy_2_14_poseidon2(device)
     runs["zk-fib"], zk_data, zk_proof = zk_fib(device)
     compressed(device, [("dummy-2^14", dummy, dummy_proof),
@@ -2551,6 +2840,8 @@ def main() -> int:
     runs["four-step-lde"] = four_step_lde(device)
     runs["merkle-update"] = merkle_update(device)
     context_circom(device, fib)
+    runs["examples"] = examples(device)
+    profile(device)
     table = kernels_vs_plain(device, runs, clock)
     k1_past_2_19(device, table, clock)
     edge_batches(device, table)

@@ -85,31 +85,32 @@ def _four_step(m: torch.Tensor, lg_n: int, lg_n2: int, group, d: int,
     n1, n2 = 1 << lg_n1, 1 << lg_n2
     rows = n2 // d
     b = m.shape[0]
+    dev = m.device
     col_shift = None
     if shift is not None:
-        with timing.scope("row factor"):
+        with timing.scope("row factor", dev):
             row_pows = ntt._shift_powers(shift, n2, m.device)[
                 idx * rows:(idx + 1) * rows]
             m = gl.mul(m, row_pows.view(1, rows, 1))
         col_shift = ref.exp(shift, n2)
-    with timing.scope("step 1: K1"):
+    with timing.scope("step 1: K1", dev):
         y = ntt.forward(m.contiguous(), rate_bits, col_shift)   # [b, rows, N1]
-    with timing.scope("middle twiddles"):
+    with timing.scope("middle twiddles", dev):
         u, v, h = _twiddle_factor_tables(lg_n, lg_n1, lg_n2, m.device)
         j2 = torch.arange(idx * rows, (idx + 1) * rows, device=m.device)
         tw = gl.mul(u.index_select(0, j2 >> h),
                     v.index_select(0, j2 & ((1 << h) - 1)))
         y = gl.mul(y, tw)
         del tw
-    with timing.scope("exchange 1"):
+    with timing.scope("exchange 1", dev):
         # [b, rows, D, N1 / D] -> block r: this rank's rows, k1 chunk r
         z = _exchange(y.view(b, rows, d, n1 // d).permute(2, 0, 1, 3), group)
         del y
         zt = z.permute(1, 3, 0, 2).reshape(b, n1 // d, n2)     # [b, k1, j2]
         del z
-    with timing.scope("step 4: K1"):
+    with timing.scope("step 4: K1", dev):
         zt = ntt.forward(zt.contiguous())                      # [b, k1, k2]
-    with timing.scope("exchange 2"):
+    with timing.scope("exchange 2", dev):
         x = _exchange(zt.view(b, n1 // d, d, n2 // d).permute(2, 0, 1, 3),
                       group)                       # [D, b, N1 / D, N2 / D]
         del zt

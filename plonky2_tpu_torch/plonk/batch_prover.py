@@ -14,22 +14,29 @@ proofs.
 
 from __future__ import annotations
 
-from ..utils.timing import TimingTree, null_timing
+from ..utils.timing import TimingTree
 from .prover import prove_many
 from .proof import ProofWithPublicInputs
+
+# the scope labels of a batch prove, in order (JAX package:
+# plonk/batch_prover.py); the last is each proof's FRI, b its index
+BATCH_SCOPES = ("run generators (batch)", "wires commitment (batch)",
+                "partial products (batch)",
+                "zs+partial_products commitment (batch)",
+                "quotient polys (batch)", "quotient commitment (batch)",
+                "openings at zeta (batch)", "FRI opening proof {b}")
 
 
 def prove_batch(prover_data, common, inputs_list,
                 timing: TimingTree | None = None
                 ) -> list[ProofWithPublicInputs]:
     """One proof for each PartialWitness of `inputs_list`; `timing` scopes
-    the witness fixpoints and round 3 (see `prover.prove`). Under a
+    its phases under BATCH_SCOPES (see `prover.prove`). Under a
     zero-knowledge config each proof draws its own salts, so prove those
     serially; the trees need a device hasher (Poseidon, Poseidon2)."""
     assert not common.config.zero_knowledge, \
         "batch prover covers non-zk circuits; prove zk circuits serially"
     assert common.gc.hasher.device, \
         "batch prover needs a device (algebraic) hasher config"
-    timing = timing or null_timing()
-    return prove_many(prover_data, common, list(inputs_list),
-                      step=timing.scope)
+    return prove_many(prover_data, common, list(inputs_list), timing,
+                      scopes=BATCH_SCOPES)

@@ -166,10 +166,10 @@ class CircuitData:
     verifier_only: VerifierOnlyData
     common: CommonCircuitData
 
-    def prove(self, inputs, step=None, rng=None):
-        """`step` and `rng`: see `plonk/prover.py`."""
+    def prove(self, inputs, timing=None, rng=None):
+        """`timing` (a TimingTree) and `rng`: see `plonk/prover.py`."""
         from .prover import prove
-        return prove(self.prover_only, self.common, inputs, step, rng)
+        return prove(self.prover_only, self.common, inputs, timing, rng)
 
     def verify(self, proof_with_pis) -> None:
         from .verifier import verify
@@ -210,9 +210,9 @@ class ProverCircuitData:
     prover_only: ProverOnlyData
     common: CommonCircuitData
 
-    def prove(self, inputs, step=None, rng=None):
+    def prove(self, inputs, timing=None, rng=None):
         from .prover import prove
-        return prove(self.prover_only, self.common, inputs, step, rng)
+        return prove(self.prover_only, self.common, inputs, timing, rng)
 
 
 @dataclasses.dataclass

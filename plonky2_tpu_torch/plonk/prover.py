@@ -18,14 +18,15 @@ and FRI run a proof at a time. `prove` is its B = 1, and
 `batch_prover.prove_batch` its B > 1. The proofs equal B calls of `prove`
 whenever the witness generators draw the same random values.
 
-`prove(..., step=...)` lets a caller time or profile two steps of a prove:
-`step(name)` returns a context manager, entered around the host witness
-fixpoint ("witness fixpoint") and round 3 ("round 3").
+`timing`, a `utils/timing.TimingTree` (a default one when None, enabled by
+PLONKY2_TPU_TIMING or PLONKY2_TPU_PROFILE), scopes the reference's timed!
+phases under the JAX package's labels: SERIAL_SCOPES for `prove`,
+`batch_prover.BATCH_SCOPES` for `prove_batch`, the last a proof's FRI. An
+enabled tree ends each scope in a synchronize of the prover's device; a
+disabled one adds none.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -38,22 +39,34 @@ from ..fri.oracle import PolynomialBatch, commit_batch
 from ..iop.challenger import Challenger
 from ..iop.generator import generate_partial_witness
 from ..ops import ntt
+from ..utils.timing import TimingTree
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
 from .vanishing import evaluate_gate_constraints_rows
 
 
-def prove(prover_data, common, inputs, step=None,
+# the scope labels of a serial prove, in order (JAX package: plonk/prover.py;
+# reference: prover.rs's timed! phases); the last is each proof's FRI
+SERIAL_SCOPES = ("run generators", "wires commitment",
+                 "compute partial products", "zs+partial_products commitment",
+                 "compute quotient polys", "quotient commitment",
+                 "openings at zeta", "FRI opening proof")
+
+
+def prove(prover_data, common, inputs, timing: TimingTree | None = None,
           rng=None) -> ProofWithPublicInputs:
     """One proof; `rng`: the salts' numpy Generator of a zero-knowledge
     config."""
-    return prove_many(prover_data, common, [inputs], step, rng)[0]
+    return prove_many(prover_data, common, [inputs], timing, rng)[0]
 
 
-def prove_many(prover_data, common, inputs_list, step=None,
-               rng=None) -> list[ProofWithPublicInputs]:
+def prove_many(prover_data, common, inputs_list,
+               timing: TimingTree | None = None, rng=None,
+               scopes: tuple = SERIAL_SCOPES
+               ) -> list[ProofWithPublicInputs]:
     """B proofs of one circuit, one for each PartialWitness of
-    `inputs_list`, their rounds 1-4 on a proof axis."""
-    step = step or (lambda name: contextlib.nullcontext())
+    `inputs_list`, their rounds 1-4 on a proof axis; `scopes`: the labels
+    of the eight phases, the last formatted with the proof's index `b`."""
+    timing = TimingTree() if timing is None else timing
     config = common.config
     fri_config = config.fri_config
     nc = config.num_challenges
@@ -67,7 +80,10 @@ def prove_many(prover_data, common, inputs_list, step=None,
     def commit(coeffs):
         return commit_batch(coeffs, rate_bits, cap_height, hasher, zk, rng)
 
-    with step("witness fixpoint"):
+    def scope(i: int, b: int = 0):
+        return timing.scope(scopes[i].format(b=b), device)
+
+    with scope(0):
         witnesses = [generate_partial_witness(inputs, prover_data, common)
                      for inputs in inputs_list]
     public_inputs = [[w.get(t) for t in prover_data.public_inputs]
@@ -77,7 +93,8 @@ def prove_many(prover_data, common, inputs_list, step=None,
                                  axis=1), device)       # [num_wires, B, n]
 
     # round 1: wires
-    wires_commitment = commit(ntt.ifft(wires))
+    with scope(1):
+        wires_commitment = commit(ntt.ifft(wires))
     challengers = []
     for pi_hash, cap in zip(pi_hashes, wires_commitment.caps()):
         challenger = Challenger(hasher)
@@ -91,28 +108,32 @@ def prove_many(prover_data, common, inputs_list, step=None,
         gammas.append(challenger.get_n_challenges(nc))
 
     # round 2: Z and partial products
-    sigmas = gl.from_u64(prover_data.sigmas, device)
-    subgroup = gl.from_u64(prover_data.subgroup, device)
-    zs, pps = [], []
-    for i in range(nc):
-        z, pp = _partial_products(
-            common, wires, sigmas, subgroup,
-            _per_proof([b[i] for b in betas], device),
-            _per_proof([g[i] for g in gammas], device))
-        zs.append(z.unsqueeze(0))
-        pps.append(pp)
-    zs_pp_commitment = commit(ntt.ifft(torch.cat(zs + pps)))
+    with scope(2):
+        sigmas = gl.from_u64(prover_data.sigmas, device)
+        subgroup = gl.from_u64(prover_data.subgroup, device)
+        zs, pps = [], []
+        for i in range(nc):
+            z, pp = _partial_products(
+                common, wires, sigmas, subgroup,
+                _per_proof([b[i] for b in betas], device),
+                _per_proof([g[i] for g in gammas], device))
+            zs.append(z.unsqueeze(0))
+            pps.append(pp)
+        zs_pp = torch.cat(zs + pps)
+    with scope(3):
+        zs_pp_commitment = commit(ntt.ifft(zs_pp))
     alphas = []
     for challenger, cap in zip(challengers, zs_pp_commitment.caps()):
         challenger.observe_cap(cap)
         alphas.append(challenger.get_n_challenges(nc))
 
     # round 3: quotient
-    with step("round 3"):
+    with scope(4):
         quotient_chunks = compute_quotient_polys(
             common, prover_data, pi_hashes, wires_commitment,
             zs_pp_commitment, betas, gammas, alphas)
-    quotient_commitment = commit(quotient_chunks)
+    with scope(5):
+        quotient_commitment = commit(quotient_chunks)
 
     # round 4: openings at zeta and g * zeta
     g = ref.primitive_root_of_unity(common.degree_bits)
@@ -125,11 +146,12 @@ def prove_many(prover_data, common, inputs_list, step=None,
         zetas.append(zeta)
     zeta_nexts = [ref.ext2_scalar_mul(z, g) for z in zetas]
     cs = prover_data.constants_sigmas_commitment
-    cs_e, w_e, zp_e, q_e = (
-        _eval_at_points(p, zetas)
-        for p in (cs.polynomials, wires_commitment.coeffs,
-                  zs_pp_commitment.coeffs, quotient_commitment.coeffs))
-    zp_next = _eval_at_points(zs_pp_commitment.coeffs, zeta_nexts)
+    with scope(6):
+        cs_e, w_e, zp_e, q_e = (
+            _eval_at_points(p, zetas)
+            for p in (cs.polynomials, wires_commitment.coeffs,
+                      zs_pp_commitment.coeffs, quotient_commitment.coeffs))
+        zp_next = _eval_at_points(zs_pp_commitment.coeffs, zeta_nexts)
 
     proofs = []
     for b, challenger in enumerate(challengers):
@@ -149,9 +171,10 @@ def prove_many(prover_data, common, inputs_list, step=None,
         oracles = [cs, wires_commitment.batches[b],
                    zs_pp_commitment.batches[b],
                    quotient_commitment.batches[b]]
-        opening_proof = PolynomialBatch.prove_openings(
-            common.get_fri_instance(zetas[b]), oracles, challenger,
-            common.fri_params)
+        instance = common.get_fri_instance(zetas[b])
+        with scope(7, b):
+            opening_proof = PolynomialBatch.prove_openings(
+                instance, oracles, challenger, common.fri_params)
         proofs.append(ProofWithPublicInputs(
             proof=Proof(
                 wires_cap=oracles[1].merkle_tree.cap_digests(),

@@ -29,7 +29,7 @@ from ..iop.challenger import Challenger
 from ..ops import ntt
 from ..plonk.prover import _eval_at
 from ..utils.bits import log2_strict
-from ..utils.timing import TimingTree, null_timing
+from ..utils.timing import TimingTree
 from .config import StarkConfig
 from .cross_table_lookup import (
     ctl_check_vars_single, eval_cross_table_lookup_checks, get_ctl_data,
@@ -76,7 +76,7 @@ def prove(stark: Stark, config: StarkConfig, trace,
     `cuda` unless given.
     """
     gc = gc or PoseidonGoldilocksConfig
-    timing = timing or null_timing()
+    timing = timing or TimingTree()
     device = _device(device)
     assert trace.shape[0] == stark.COLUMNS
     degree = trace.shape[1]
@@ -88,9 +88,9 @@ def prove(stark: Stark, config: StarkConfig, trace,
     assert stark.constraint_degree() <= (1 << rate_bits) + 1, \
         "constraint degree must be <= blowup + 1"
 
-    with timing.scope("trace to device"):
+    with timing.scope("trace to device", device):
         trace_t = _on(trace, device)
-    with timing.scope("compute trace commitment"):
+    with timing.scope("compute trace commitment", device):
         trace_commitment = PolynomialBatch.from_values(
             trace_t, rate_bits, cap_height, gc.hasher)
 
@@ -113,7 +113,7 @@ def prove(stark: Stark, config: StarkConfig, trace,
             pairs = get_grand_product_challenge_set(challenger,
                                                     config.num_challenges)
         lookup_challenges = [beta for beta, _gamma in pairs]
-        with timing.scope("compute lookup helper columns"):
+        with timing.scope("compute lookup helper columns", device):
             aux_polys = torch.cat([
                 lookup_helper_columns(lookup, trace_t, beta,
                                       stark.constraint_degree())
@@ -130,19 +130,19 @@ def prove(stark: Stark, config: StarkConfig, trace,
                      else torch.cat([aux_polys, ctl_aux]))
 
     if aux_polys is not None:
-        with timing.scope("compute auxiliary polynomials commitment"):
+        with timing.scope("compute auxiliary polynomials commitment", device):
             aux_commitment = PolynomialBatch.from_values(
                 aux_polys, rate_bits, cap_height, gc.hasher)
         challenger.observe_cap(aux_commitment.merkle_tree.cap_digests())
 
     alphas = challenger.get_n_challenges(config.num_challenges)
 
-    with timing.scope("compute quotient polys"):
+    with timing.scope("compute quotient polys", device):
         quotient_chunks = compute_quotient_polys(
             stark, config, trace_commitment, aux_commitment,
             lookup_challenges, ctl_challenges, ctls, table, public_inputs,
             alphas, degree_bits)
-    with timing.scope("compute quotient commitment"):
+    with timing.scope("compute quotient commitment", device):
         quotient_commitment = PolynomialBatch.from_coeffs(
             quotient_chunks, rate_bits, cap_height, gc.hasher)
     challenger.observe_cap(quotient_commitment.merkle_tree.cap_digests())
@@ -154,7 +154,7 @@ def prove(stark: Stark, config: StarkConfig, trace,
     zeta_next = ref.ext2_scalar_mul(zeta, g)
 
     requires_ctl = ctl_data is not None and ctl_data.zs_columns
-    with timing.scope("openings"):
+    with timing.scope("openings", device):
         ctl_zs_first = None
         if requires_ctl:
             zs = aux_commitment.polynomials[
@@ -179,7 +179,7 @@ def prove(stark: Stark, config: StarkConfig, trace,
     if aux_commitment is not None:
         commitments.append(aux_commitment)
     commitments.append(quotient_commitment)
-    with timing.scope("FRI opening proof"):
+    with timing.scope("FRI opening proof", device):
         opening_proof = PolynomialBatch.prove_openings(
             instance, commitments, challenger, fri_params)
 
@@ -204,20 +204,20 @@ def prove_multi(starks: list[Stark], config: StarkConfig,
     columns, then each table is proven from a fork of that transcript state
     (reference flow: get_ctl_data, cross_table_lookup.rs:226-252)."""
     gc = gc or PoseidonGoldilocksConfig
-    timing = timing or null_timing()
+    timing = timing or TimingTree()
     device = _device(device)
     max_degree = max(s.constraint_degree() for s in starks)
     assert max_degree >= 2, "CTL helper chunks need constraint degree >= 2"
-    with timing.scope("traces to device"):
+    with timing.scope("traces to device", device):
         trace_ts = [_on(t, device) for t in traces]
     challenger = Challenger(gc.hasher)
-    with timing.scope("trace commitments"):
+    with timing.scope("trace commitments", device):
         commitments = [PolynomialBatch.from_values(
             t, config.fri_config.rate_bits, config.fri_config.cap_height,
             gc.hasher) for t in trace_ts]
     for c in commitments:
         challenger.observe_cap(c.merkle_tree.cap_digests())
-    with timing.scope("ctl data"):
+    with timing.scope("ctl data", device):
         ctl_challenges, ctl_data_per_table = get_ctl_data(
             config, trace_ts, ctls, challenger, max_degree)
     proofs = []

@@ -11,8 +11,9 @@ card. For each wrap it prints:
   - under torch.profiler, that prove's CUDA launches and the device time
     of its kernels, and their sum over the profiled prove's host time
     (the device's busy share: the kernels run on one stream);
-  - the same for round 3 alone, profiled inside another prove through the
-    prover's step hook (`plonk/prover.py`);
+  - the same for round 3 alone ("compute quotient polys"), profiled inside
+    another prove through the TimingTree the prover scopes its phases with
+    (`plonk/prover.py`);
   - for each gate type of the circuit, `eval_unfiltered_rows` on random
     rows of the round-3 grid's width: CUDA launches, device ms and host ms
     (CUDA events around back-to-back calls).
@@ -98,10 +99,16 @@ def profile_wrap(name, data, pw, device) -> dict:
     with profiled(out["prove"]):
         data.prove(pw)
 
-    def step(what):
-        return (profiled(out["round_3"]) if what == "round 3"
-                else contextlib.nullcontext())
-    data.prove(pw, step)
+    from plonky2_tpu_torch.utils.timing import TimingTree
+
+    class Round3(TimingTree):
+        """Profiles the prover's round-3 scope and times nothing else."""
+
+        def scope(self, label, device=None):
+            return (profiled(out["round_3"])
+                    if label == "compute quotient polys"
+                    else contextlib.nullcontext())
+    data.prove(pw, Round3())
     # the grid of round 3: degree x 2^ceil(lg qdf) points
     N = common.degree << (common.quotient_degree_factor - 1).bit_length()
     rng = np.random.default_rng(5)

@@ -1,6 +1,7 @@
 """The port's batch prover (plonk/batch_prover.py `prove_batch`) on the CPU:
 B proofs of one circuit equal, byte for byte, B serial proofs of the port
-and the JAX package's `prove_batch` proofs of the same seeded circuit, for
+and the JAX package's `prove_batch` proofs of the same seeded circuit, with
+JAX's TimingTree scope labels in JAX's order, for
 the fib(100) circuit (2^3) here and tests/test_batch_prover.py's Poseidon
 + random-access circuit in tests/test_torch_batch_hash.py, at B = 2 and 3
 (JAX's batch prover compiles for each B, so the two circuits are two files
@@ -19,6 +20,7 @@ import torch
 
 import service_circuits as sc
 from plonky2_tpu.plonk.batch_prover import prove_batch as jprove_batch
+from plonky2_tpu.utils.timing import TimingTree as JTimingTree
 from plonky2_tpu.utils.serialization import (
     serialize_proof_with_pis as jserialize,
 )
@@ -26,8 +28,9 @@ from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.field import reference as ref
 from plonky2_tpu_torch.fri.oracle import PolynomialBatch, commit_batch
 from plonky2_tpu_torch.hash.hashers import POSEIDON, POSEIDON2
-from plonky2_tpu_torch.plonk.batch_prover import prove_batch
+from plonky2_tpu_torch.plonk.batch_prover import BATCH_SCOPES, prove_batch
 from plonky2_tpu_torch.utils.serialization import serialize_proof_with_pis
+from plonky2_tpu_torch.utils.timing import TimingTree
 
 PORT, JAX = "plonky2_tpu_torch", "plonky2_tpu"
 # circuit -> (its builder over a package, the inputs of three proofs)
@@ -59,13 +62,20 @@ def check_batch(name: str, B: int, serial) -> None:
     circuit, values = CIRCUITS[name]
     builder, inputs = circuit(PORT)
     data = builder.build(device="cpu")
+    timing = TimingTree(enabled=True)
     batch = prove_batch(data.prover_only, data.common,
-                        [inputs(*v) for v in values[:B]])
+                        [inputs(*v) for v in values[:B]], timing)
     jbuilder, jinputs = circuit(JAX)
     jdata = jbuilder.build()
+    jtiming = JTimingTree(enabled=True)
     jbatch = jprove_batch(jdata.prover_only, jdata.common,
-                          [jinputs(*v) for v in values[:B]])
+                          [jinputs(*v) for v in values[:B]], jtiming)
     assert len(batch) == len(jbatch) == B
+    # the scopes: JAX's batch labels in order, one FRI scope a proof
+    labels = [label for depth, label, _ in timing.records if depth == 0]
+    assert labels == [node[0] for node in jtiming.root[2]]
+    assert labels == list(BATCH_SCOPES[:-1]) + [
+        BATCH_SCOPES[-1].format(b=b) for b in range(B)]
     for got, want, pis, jwant in zip(batch, serial_bytes, serial_pis,
                                      jbatch):
         raw = serialize_proof_with_pis(got, data.common)

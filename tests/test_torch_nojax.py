@@ -7,8 +7,9 @@ module of JAX or of the JAX package was loaded. An AST scan checks that
 no module of the port, chip_smoke.py, the gadget, STARK and service
 circuits it proves (tests/gadget_circuits.py, tests/stark_circuits.py,
 tests/service_circuits.py, the mesh worker tests/torch_parallel_worker.py),
-the port's kernel probe (scripts/torch_poseidon_probe.py) or its wrap
-profile (scripts/torch_wrap_profile.py) imports either, and a 2-rank gloo
+the port's kernel probe (scripts/torch_poseidon_probe.py), its wrap
+profile (scripts/torch_wrap_profile.py) or its examples
+(plonky2_tpu_torch/examples/) imports either, and a 2-rank gloo
 commit of the port's `parallel/` runs with both blocked. This is what
 lets chip_smoke.py run on a machine with no JAX."""
 
@@ -256,6 +257,11 @@ PARALLEL_MODULES = [
     "plonky2_tpu_torch.utils.circom_export",
 ]
 
+# the port's entry points, one for each of the JAX package's examples
+EXAMPLE_MODULES = [f"plonky2_tpu_torch.examples.{m}" for m in (
+    "_common", "fibonacci", "factorial", "range_check", "square_root",
+    "fibonacci_serialization", "batch_prove", "bench_recursion")]
+
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -271,8 +277,8 @@ print("\n".join(names))
 
 def test_every_port_module_imports_with_jax_blocked():
     """Each module of the port, the recursion's, the outer configs' hashers,
-    the gadget crates and starky included, imports where `import jax` and
-    `import plonky2_tpu` fail."""
+    the gadget crates, starky and the examples included, imports where
+    `import jax` and `import plonky2_tpu` fail."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True,
@@ -280,7 +286,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()
     listed = (RECURSION_MODULES + OUTER_CONFIG_MODULES + GADGET_MODULES
-              + STARKY_MODULES + SERVICE_MODULES + PARALLEL_MODULES)
+              + STARKY_MODULES + SERVICE_MODULES + PARALLEL_MODULES
+              + EXAMPLE_MODULES)
     assert set(listed) <= set(names)
     files = {os.path.relpath(os.path.join(d, n), ROOT)
              for d, _, ns in os.walk(os.path.join(ROOT, "plonky2_tpu_torch"))

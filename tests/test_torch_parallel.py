@@ -39,6 +39,7 @@ from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.fri import oracle
 from plonky2_tpu_torch.hash.hashers import KECCAK, POSEIDON, POSEIDON_BN128
 from plonky2_tpu_torch.parallel import sharding
+from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
 
 import torch_parallel_worker as worker
 
@@ -176,13 +177,16 @@ def test_training_step_sharded(ranks):
 def test_fib100_under_prover_mesh(ranks):
     """fib(100) proved on 2 ranks under prover_mesh: both ranks' bytes equal
     the serial proof's and the golden transcript's; its three commits
-    (wires, Z and partial products, quotient) went through the mesh."""
+    (wires, Z and partial products, quotient) went through the mesh; each
+    rank's TimingTree recorded the serial prove's eight scopes."""
     r0, r1 = ranks["prove"]
     with open(GOLDEN) as f:
         golden = bytes.fromhex(json.load(f)["proof_hex"])
     for r in (r0, r1):
         assert r["fib100_mesh"].tobytes() == golden
         assert r["fib100_serial"].tobytes() == golden
+        assert r["mesh_scopes"].tobytes().decode().split("\n") == \
+            list(SERIAL_SCOPES)
     assert r0["mesh_commits"][0] == 3
 
 

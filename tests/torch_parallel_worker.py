@@ -145,6 +145,7 @@ def prove(rank, world):
     from plonky2_tpu_torch.utils.serialization import (
         serialize_proof_with_pis,
     )
+    from plonky2_tpu_torch.utils.timing import TimingTree
 
     # count the commits that went through the mesh
     commits = []
@@ -161,8 +162,9 @@ def prove(rank, world):
     serial = data.prove(pw)
     data, pw = _fib100()
     mesh = make_mesh(device="cpu")
+    timing = TimingTree(enabled=True)
     with prover_mesh(mesh):
-        meshed = data.prove(pw)
+        meshed = data.prove(pw, timing)
     data.verify(meshed)
     plonk_commits = len(commits)
 
@@ -179,7 +181,10 @@ def prove(rank, world):
             "stark_serial": b(pickle.dumps(stark_serial)),
             "stark_mesh": b(pickle.dumps(stark_meshed)),
             "mesh_commits": np.asarray([plonk_commits,
-                                        len(commits) - plonk_commits])}
+                                        len(commits) - plonk_commits]),
+            "mesh_scopes": b("\n".join(
+                label for depth, label, _ in timing.records
+                if depth == 0).encode())}
 
 
 def commit(rank, world):
