@@ -322,7 +322,7 @@ def _golden(name: str, data, proof, path: str) -> None:
         f"(proof {len(got['proof_hex']) // 2} bytes)")
 
 
-POW_STATES = []   # (hasher, state, witness_pos, threshold) of the fib proofs
+POW_STATES = []   # (hasher, state, witness_pos, pow_bits) of the fib proofs
 
 
 def _recording_pow_waves(hasher):
@@ -331,9 +331,9 @@ def _recording_pow_waves(hasher):
 
     wave = prover._pow_wave
 
-    def recorded(permute, state, witness_pos, threshold, batch, device):
-        POW_STATES.append((hasher, list(state), witness_pos, threshold))
-        return wave(permute, state, witness_pos, threshold, batch, device)
+    def recorded(permute, state, witness_pos, pow_bits, batch, device):
+        POW_STATES.append((hasher, list(state), witness_pos, pow_bits))
+        return wave(permute, state, witness_pos, pow_bits, batch, device)
     prover._pow_wave = recorded
     return wave
 
@@ -2099,7 +2099,8 @@ def edge_batches(device, table):
 def pow_stress(device):
     """One 2^19 wave of K2 and of K6 against the host C permutation over its
     full output, then waves from the fib transcript states and from random
-    sponge states, each witness checked on the host."""
+    sponge states, at 16 bits and at 0, 1, 2 and 8, each witness checked
+    on the host."""
     from plonky2_tpu_torch import host
     from plonky2_tpu_torch.fri.prover import _pow_wave
     from plonky2_tpu_torch.hash.hashers import POSEIDON, POSEIDON2
@@ -2108,7 +2109,6 @@ def pow_stress(device):
         raise AssertionError("no host C permutation library")
     rng = np.random.default_rng(17)
     batch, bits = 1 << 19, 16
-    threshold = 1 << (64 - bits)
     for hasher in (POSEIDON, POSEIDON2):
         base = rng.integers(0, P, size=12, dtype=np.uint64)
         states = np.tile(base, (batch, 1))
@@ -2122,31 +2122,40 @@ def pow_stress(device):
         log(f"PoW stress: a {batch}-state {hasher.name} wave equals the host "
             f"permutation")
 
-    # (hasher, state, witness position, threshold, whether every smaller
+    # (hasher, state, witness position, bits, whether every smaller
     # candidate is checked on the host too)
-    waves = [(h, state, pos, thr, True) for _, state, pos, thr in POW_STATES
+    waves = [(h, state, pos, b, True) for _, state, pos, b in POW_STATES
              for h in (POSEIDON, POSEIDON2)]
     for hasher, count in ((POSEIDON, 48), (POSEIDON2, 24)):
         waves += [(hasher, [int(v) for v in rng.integers(0, P, size=12,
                                                          dtype=np.uint64)],
-                   int(rng.integers(0, 8)), threshold, i < 8)
+                   int(rng.integers(0, 8)), bits, i < 8)
                   for i in range(count)]
+    # the fewest bits: at 0 every candidate meets the bound, so the wave
+    # returns 0 without a test against 2^64
+    few = (0, 1, 2, 8)
+    waves += [(hasher, [int(v) for v in rng.integers(0, P, size=12,
+                                                     dtype=np.uint64)],
+               int(rng.integers(0, 8)), b, True)
+              for hasher in (POSEIDON, POSEIDON2) for b in few]
     host_perms = 0
-    for hasher, state, pos, thr, smallest in waves:
-        w = _pow_wave(hasher.permute, state, pos, thr, batch, device)
+    for hasher, state, pos, wave_bits, smallest in waves:
+        w = _pow_wave(hasher.permute, state, pos, wave_bits, batch, device)
         lo = 0 if smallest else w
         cand = np.tile(np.asarray(state, dtype=np.uint64), (w + 1 - lo, 1))
         cand[:, pos] = np.arange(lo, w + 1, dtype=np.uint64)
         resp = hasher.permute_many_host(cand)[:, 7]
         host_perms += w + 1 - lo
-        if not (resp[-1] < np.uint64(thr) and
-                bool(np.all(resp[:-1] >= np.uint64(thr)))):
+        thr = np.uint64(1 << (64 - wave_bits)) if wave_bits else None
+        if not (w == 0 if thr is None else (
+                resp[-1] < thr and bool(np.all(resp[:-1] >= thr)))):
             raise AssertionError(f"{hasher.name} wave from {state} (witness "
                                  f"position {pos}) returned {w}, which is "
                                  f"not the smallest witness on the host")
     log(f"PoW stress: {len(waves)} waves ({len(POW_STATES)} transcript "
         f"states through both hashers, 48 random through poseidon and 24 "
-        f"through poseidon2), every witness meets the bound on the host, and"
+        f"through poseidon2 at {bits} bits, one random through each at "
+        f"{few} bits), every witness meets the bound on the host, and"
         f" {sum(w[4] for w in waves)} are the host's smallest ({host_perms} "
         f"host permutations)")
 
@@ -2645,11 +2654,12 @@ def scopes(device, dummy, wrap):
     """One warm prove of dummy-2^14 and of the fib100-wrap, and one warm
     prove_batch of four dummy witnesses, each under an enabled TimingTree
     whose scopes end in a synchronize: every scope's seconds and share of
-    the prove, the labels in the JAX package's order. Before and after the
+    the prove, the labels in the JAX package's order (the port's
+    HOST_SPANS between them). Before and after the
     first, dummy-2^14 proved warm by default (a disabled tree): the seconds
     and hand-kernel launches of both ways."""
     from plonky2_tpu_torch.plonk.batch_prover import BATCH_SCOPES, prove_batch
-    from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
+    from plonky2_tpu_torch.plonk.prover import HOST_SPANS, SERIAL_SCOPES
     from plonky2_tpu_torch.recursion.dummy import dummy_witness
     from plonky2_tpu_torch.utils.timing import TimingTree
 
@@ -2681,7 +2691,8 @@ def scopes(device, dummy, wrap):
     for name, prove, labels in cases:
         timing = TimingTree(name, enabled=True)
         total, launched = timed(prove, timing)
-        got = [label for depth, label, _ in timing.records if depth == 0]
+        got = [label for depth, label, _ in timing.records
+               if depth == 0 and label not in HOST_SPANS]
         if got != labels:
             raise AssertionError(f"scopes: {name} recorded {got}")
         _share_line(name, timing, total)

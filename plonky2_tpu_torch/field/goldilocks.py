@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing as tracing
 from . import reference as ref
 
 ORDER = ref.ORDER
@@ -32,10 +33,12 @@ def from_u64(x, device) -> torch.Tensor:
         arr = np.vectorize(lambda v: int(v) % ORDER, otypes=[np.uint64])(
             np.asarray(x, dtype=object))
     arr = np.ascontiguousarray(arr, dtype=np.uint64)
+    tracing.count("host_reads")      # a blocking upload drains the queue
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
 
 
 def to_u64(a: torch.Tensor) -> np.ndarray:
+    tracing.count("host_reads")
     return a.detach().cpu().numpy().view(np.uint64).copy()
 
 

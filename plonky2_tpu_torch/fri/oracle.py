@@ -31,6 +31,11 @@ one proof. These keep the single-device commit, as there: a blinded (zero
 knowledge) commit, a host hasher's (Keccak, PoseidonBN128), and
 `commit_batch` of B > 1 proofs (`batch_prover.prove_batch`). That is the
 reference's semantics, not a fallback: the mesh never changes a proof.
+
+`prove_openings` scopes its phases on the thread's active TimingTree
+(`utils/timing.scope`): the alpha draw (`challenges`), `reduce batch of
+polynomials` (the alpha reduction and division of every opened batch) and
+`perform final FFT` (the final polynomial's LDE), then `fri_proof`'s.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..ops.polynomial import (
     divide_by_linear, mul_poly_by_x, reduce_polys_base,
 )
 from ..parallel import sharding
+from ..utils import timing as tracing
 from ..utils.bits import log2_strict, reverse_bits
 from .config import FriParams
 from .prover import fri_proof
@@ -115,26 +121,29 @@ class PolynomialBatch:
     @staticmethod
     def prove_openings(instance: FriInstanceInfo, oracles: list,
                        challenger: Challenger, fri_params: FriParams):
-        alpha = challenger.get_extension_challenge()
+        with tracing.scope("challenges"):
+            alpha = challenger.get_extension_challenge()
         n = oracles[0].polynomials.shape[-1]
         device = oracles[0].polynomials.device
-        final = GF2.zeros((n,), device)
-        for batch in instance.batches:
-            polys = torch.stack([
-                oracles[p.oracle_index].polynomials[p.polynomial_index]
-                for p in batch.polynomials])
-            count = len(batch.polynomials)
-            quotient = divide_by_linear(reduce_polys_base(polys, alpha),
-                                        batch.point)
-            shift = GF2.const(ref.ext2_exp(alpha, count), device)
-            final = final * shift + quotient
+        with tracing.scope("reduce batch of polynomials", device):
+            final = GF2.zeros((n,), device)
+            for batch in instance.batches:
+                polys = torch.stack([
+                    oracles[p.oracle_index].polynomials[p.polynomial_index]
+                    for p in batch.polynomials])
+                count = len(batch.polynomials)
+                quotient = divide_by_linear(reduce_polys_base(polys, alpha),
+                                            batch.point)
+                shift = GF2.const(ref.ext2_exp(alpha, count), device)
+                final = final * shift + quotient
 
         # multiply by X (the top coefficient is provably zero), then LDE
-        shifted = mul_poly_by_x(final)[:n]
-        rate_bits = fri_params.config.rate_bits
-        pad = GF2.zeros((n * ((1 << rate_bits) - 1),), device)
-        lde_coeffs = GF2.cat([shifted, pad])
-        lde_values = ntt.coset_lde_ext(shifted, rate_bits)
+        with tracing.scope("perform final FFT", device):
+            shifted = mul_poly_by_x(final)[:n]
+            rate_bits = fri_params.config.rate_bits
+            pad = GF2.zeros((n * ((1 << rate_bits) - 1),), device)
+            lde_coeffs = GF2.cat([shifted, pad])
+            lde_values = ntt.coset_lde_ext(shifted, rate_bits)
         return fri_proof([o.merkle_tree for o in oracles], lde_coeffs,
                          lde_values, challenger, fri_params)
 

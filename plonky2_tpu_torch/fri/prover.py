@@ -1,6 +1,12 @@
 """FRI prover: commit/fold layers, proof-of-work grind, query rounds
 (reference fri/prover.rs — fri_committed_trees
-:70-114, fri_proof_of_work:117-161, query rounds :164-218)."""
+:70-114, fri_proof_of_work:117-161, query rounds :164-218).
+
+`fri_proof` scopes its three phases on the thread's active TimingTree
+(`utils/timing.scope`), under plonky2's timed! labels where plonky2 has
+them: `fold codewords in the commitment phase` (each fold's cap observation
+and beta draw a `challenges` scope inside it), `find proof-of-work
+witness`, and `FRI query rounds`."""
 
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from ..hash.sponge import SPONGE_RATE, W
 from ..iop.challenger import Challenger
 from ..ops import ntt
 from ..ops.polynomial import horner_fold
+from ..utils import timing as tracing
 from .config import FriParams
 from .proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
 
@@ -35,9 +42,10 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
     for arity_bits in fri_params.reduction_arity_bits:
         tree = MerkleTree(_brv_leaves(values, 1 << arity_bits), cap_height,
                           challenger.hasher)
-        challenger.observe_cap(tree.cap_digests())
         trees.append(tree)
-        beta = challenger.get_extension_challenge()
+        with tracing.scope("challenges"):
+            challenger.observe_cap(tree.cap_digests())
+            beta = challenger.get_extension_challenge()
         shift = ref.exp(shift, 1 << arity_bits)
         coeffs = horner_fold(coeffs, beta, arity_bits)
         values = ntt.coset_fft_ext(coeffs, shift)
@@ -47,11 +55,15 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
     return trees, final_coeffs
 
 
-def _pow_wave(permute, state, witness_pos: int, threshold: int, batch: int,
+def _pow_wave(permute, state, witness_pos: int, pow_bits: int, batch: int,
               device) -> int:
     """Grind in waves of `batch` candidates through the device permutation
-    `permute` (a kernel on a CUDA tensor); the smallest valid witness of the
-    first wave that has one."""
+    `permute` (a kernel on a CUDA tensor); the smallest witness of the
+    first wave that has one whose response's top `pow_bits` bits are 0
+    (with 0 bits, witness 0)."""
+    if pow_bits == 0:
+        return 0
+    tracing.count("host_reads")                  # the state's upload
     base = torch.as_tensor(np.asarray(state, dtype=np.uint64).view(np.int64),
                            device=device)
     start = 0
@@ -60,23 +72,32 @@ def _pow_wave(permute, state, witness_pos: int, threshold: int, batch: int,
         states[:, witness_pos] = torch.arange(start, start + batch,
                                               device=device)
         r = permute(states)[:, SPONGE_RATE - 1]
-        hits = torch.nonzero((r >= 0) & (r < threshold))
+        # int64 holds the u64 pattern: >> sign-extends, so the top bits
+        # are all 0 exactly when the shifted value is 0
+        tracing.count("host_reads")              # nonzero's size
+        hits = torch.nonzero((r >> (64 - pow_bits)) == 0)
         if hits.numel():
+            tracing.count("host_reads")
             return start + int(hits[0, 0])
         start += batch
         assert start < 1 << 40, "PoW grind failed (astronomically unlikely)"
 
 
-def _pow_grind_host(permute_many, state, witness_pos: int, threshold: int,
+def _pow_grind_host(permute_many, state, witness_pos: int, pow_bits: int,
                     batch: int) -> int:
-    """Grind through a host batch permutation uint64 [n, 12] -> [n, 12]."""
+    """Grind through a host batch permutation uint64 [n, 12] -> [n, 12]:
+    the smallest witness whose response's top `pow_bits` bits are 0 (with
+    0 bits, witness 0)."""
+    if pow_bits == 0:
+        return 0
     base = np.asarray(state, dtype=np.uint64)
+    shift = np.uint64(64 - pow_bits)
     start = 0
     while True:
         states = np.tile(base, (batch, 1))
         states[:, witness_pos] = start + np.arange(batch, dtype=np.uint64)
         out = permute_many(states)
-        hits = np.nonzero(out[:, SPONGE_RATE - 1] < np.uint64(threshold))[0]
+        hits = np.nonzero(out[:, SPONGE_RATE - 1] >> shift == 0)[0]
         if len(hits):
             return start + int(hits[0])
         start += batch
@@ -97,11 +118,11 @@ def fri_proof_of_work(challenger: Challenger, pow_bits: int, device) -> int:
         state[i] = x
     threshold = 1 << (64 - pow_bits)
     if hasher.device and torch.device(device).type == "cuda":
-        witness = _pow_wave(hasher.permute, state, witness_pos, threshold,
+        witness = _pow_wave(hasher.permute, state, witness_pos, pow_bits,
                             max(256, min(1 << 20, 8 << pow_bits)), device)
     else:
         witness = _pow_grind_host(hasher.permute_many_host, state,
-                                  witness_pos, threshold,
+                                  witness_pos, pow_bits,
                                   max(256, min(1 << 16, 2 << pow_bits)))
     challenger.observe_element(witness)
     response = challenger.get_challenge()
@@ -144,13 +165,16 @@ def fri_prover_query_rounds(initial_trees, trees, challenger: Challenger,
 def fri_proof(initial_trees, lde_coeffs: GF2, lde_values: GF2,
               challenger: Challenger, fri_params: FriParams) -> FriProof:
     n = lde_values.shape[-1]
-    trees, final_coeffs = fri_committed_trees(lde_coeffs, lde_values,
-                                              challenger, fri_params)
-    pow_witness = fri_proof_of_work(challenger,
-                                    fri_params.config.proof_of_work_bits,
-                                    lde_values.c0.device)
-    query_rounds = fri_prover_query_rounds(initial_trees, trees, challenger,
-                                           n, fri_params)
+    device = lde_values.c0.device
+    with tracing.scope("fold codewords in the commitment phase", device):
+        trees, final_coeffs = fri_committed_trees(lde_coeffs, lde_values,
+                                                  challenger, fri_params)
+    with tracing.scope("find proof-of-work witness", device):
+        pow_witness = fri_proof_of_work(
+            challenger, fri_params.config.proof_of_work_bits, device)
+    with tracing.scope("FRI query rounds", device):
+        query_rounds = fri_prover_query_rounds(initial_trees, trees,
+                                               challenger, n, fri_params)
     return FriProof(
         commit_phase_merkle_caps=[t.cap_digests() for t in trees],
         query_round_proofs=query_rounds,

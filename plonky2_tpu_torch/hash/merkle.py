@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..field import goldilocks as gl
+from ..utils import timing as tracing
 from ..utils.bits import log2_strict
 
 
@@ -86,10 +87,15 @@ class MerkleTree:
             self._leaves_host = gl.to_u64(self.leaves)
         return self._leaves_host
 
+    def _indices(self, indices) -> torch.Tensor:
+        """Leaf indices uploaded to the leaves' device (a host read: the
+        upload waits on the card's queue)."""
+        tracing.count("host_reads")
+        return torch.as_tensor(np.asarray(indices, dtype=np.int64),
+                               device=self.leaves.device)
+
     def rows_batch(self, indices) -> np.ndarray:
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
-                              device=self.leaves.device)
-        return gl.to_u64(self.leaves.index_select(0, idx))
+        return gl.to_u64(self.leaves.index_select(0, self._indices(indices)))
 
     def prove(self, leaf_index: int) -> np.ndarray:
         """[depth, digest_width] sibling path of one leaf, leaf level
@@ -142,8 +148,7 @@ class MerkleTree:
             idx = np.asarray(indices, dtype=np.int64)
             return np.stack([self.layers[lvl][(idx >> lvl) ^ 1]
                              for lvl in range(self.depth)], axis=1)
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
-                              device=self.leaves.device)
+        idx = self._indices(indices)
         sibs = [self.layers[lvl].index_select(0, (idx >> lvl) ^ 1)
                 for lvl in range(self.depth)]
         return gl.to_u64(torch.stack(sibs, dim=1))

@@ -23,7 +23,15 @@ PLONKY2_TPU_TIMING or PLONKY2_TPU_PROFILE), scopes the reference's timed!
 phases under the JAX package's labels: SERIAL_SCOPES for `prove`,
 `batch_prover.BATCH_SCOPES` for `prove_batch`, the last a proof's FRI. An
 enabled tree ends each scope in a synchronize of the prover's device; a
-disabled one adds none.
+disabled one adds none. The host work between those phases lies in the
+port's own depth-0 scopes, HOST_SPANS, which end in no synchronize:
+`witness upload` (the public inputs, their hash and the wires' upload),
+`challenges` (each Fiat-Shamir block, and a proof's openings observed and
+its FRI instance) and `proof assembly`. Inside round 3 the scopes are
+`coset values`, `gate constraints` (a `gate <id>` scope for each gate with
+constraints), `permutation terms`, `alpha reduction` and `quotient iNTT`;
+FRI's are in `fri/oracle.py` and `fri/prover.py`. The tree counts the
+call's `proofs`.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ..fri.oracle import PolynomialBatch, commit_batch
 from ..iop.challenger import Challenger
 from ..iop.generator import generate_partial_witness
 from ..ops import ntt
+from ..utils import timing as tracing
 from ..utils.timing import TimingTree
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
 from .vanishing import evaluate_gate_constraints_rows
@@ -50,6 +59,9 @@ SERIAL_SCOPES = ("run generators", "wires commitment",
                  "compute partial products", "zs+partial_products commitment",
                  "compute quotient polys", "quotient commitment",
                  "openings at zeta", "FRI opening proof")
+# the port's depth-0 scopes of the host work between those (and between the
+# STARK prover's)
+HOST_SPANS = ("witness upload", "challenges", "proof assembly")
 
 
 def prove(prover_data, common, inputs, timing: TimingTree | None = None,
@@ -80,32 +92,40 @@ def prove_many(prover_data, common, inputs_list,
     def commit(coeffs):
         return commit_batch(coeffs, rate_bits, cap_height, hasher, zk, rng)
 
-    def scope(i: int, b: int = 0):
-        return timing.scope(scopes[i].format(b=b), device)
+    def scope(i: int, b: int | None = None):
+        return timing.scope(scopes[i].format(b=b), device, b)
 
+    def host(i: int, b: int | None = None):
+        return timing.scope(HOST_SPANS[i], b=b)
+
+    timing.count("proofs", len(inputs_list))
     with scope(0):
         witnesses = [generate_partial_witness(inputs, prover_data, common)
                      for inputs in inputs_list]
-    public_inputs = [[w.get(t) for t in prover_data.public_inputs]
-                     for w in witnesses]
-    pi_hashes = [common.gc.hash_public_inputs(pis) for pis in public_inputs]
-    wires = gl.from_u64(np.stack([w.full_witness() for w in witnesses],
-                                 axis=1), device)       # [num_wires, B, n]
+    with host(0):
+        public_inputs = [[w.get(t) for t in prover_data.public_inputs]
+                         for w in witnesses]
+        pi_hashes = [common.gc.hash_public_inputs(pis)
+                     for pis in public_inputs]
+        wires = gl.from_u64(np.stack([w.full_witness() for w in witnesses],
+                                     axis=1), device)   # [num_wires, B, n]
+        del witnesses       # the fixpoint's tables, freed inside the span
 
     # round 1: wires
     with scope(1):
         wires_commitment = commit(ntt.ifft(wires))
-    challengers = []
-    for pi_hash, cap in zip(pi_hashes, wires_commitment.caps()):
-        challenger = Challenger(hasher)
-        challenger.observe_hash(prover_data.circuit_digest)
-        challenger.observe_hash(pi_hash)
-        challenger.observe_cap(cap)
-        challengers.append(challenger)
-    betas, gammas = [], []
-    for challenger in challengers:
-        betas.append(challenger.get_n_challenges(nc))
-        gammas.append(challenger.get_n_challenges(nc))
+    with host(1):
+        challengers = []
+        for pi_hash, cap in zip(pi_hashes, wires_commitment.caps()):
+            challenger = Challenger(hasher)
+            challenger.observe_hash(prover_data.circuit_digest)
+            challenger.observe_hash(pi_hash)
+            challenger.observe_cap(cap)
+            challengers.append(challenger)
+        betas, gammas = [], []
+        for challenger in challengers:
+            betas.append(challenger.get_n_challenges(nc))
+            gammas.append(challenger.get_n_challenges(nc))
 
     # round 2: Z and partial products
     with scope(2):
@@ -122,10 +142,11 @@ def prove_many(prover_data, common, inputs_list,
         zs_pp = torch.cat(zs + pps)
     with scope(3):
         zs_pp_commitment = commit(ntt.ifft(zs_pp))
-    alphas = []
-    for challenger, cap in zip(challengers, zs_pp_commitment.caps()):
-        challenger.observe_cap(cap)
-        alphas.append(challenger.get_n_challenges(nc))
+    with host(1):
+        alphas = []
+        for challenger, cap in zip(challengers, zs_pp_commitment.caps()):
+            challenger.observe_cap(cap)
+            alphas.append(challenger.get_n_challenges(nc))
 
     # round 3: quotient
     with scope(4):
@@ -136,15 +157,16 @@ def prove_many(prover_data, common, inputs_list,
         quotient_commitment = commit(quotient_chunks)
 
     # round 4: openings at zeta and g * zeta
-    g = ref.primitive_root_of_unity(common.degree_bits)
-    zetas = []
-    for challenger, cap in zip(challengers, quotient_commitment.caps()):
-        challenger.observe_cap(cap)
-        zeta = challenger.get_extension_challenge()
-        assert ref.ext2_exp(zeta, common.degree) != (1, 0), \
-            "Opening point is in the subgroup"
-        zetas.append(zeta)
-    zeta_nexts = [ref.ext2_scalar_mul(z, g) for z in zetas]
+    with host(1):
+        g = ref.primitive_root_of_unity(common.degree_bits)
+        zetas = []
+        for challenger, cap in zip(challengers, quotient_commitment.caps()):
+            challenger.observe_cap(cap)
+            zeta = challenger.get_extension_challenge()
+            assert ref.ext2_exp(zeta, common.degree) != (1, 0), \
+                "Opening point is in the subgroup"
+            zetas.append(zeta)
+        zeta_nexts = [ref.ext2_scalar_mul(z, g) for z in zetas]
     cs = prover_data.constants_sigmas_commitment
     with scope(6):
         cs_e, w_e, zp_e, q_e = (
@@ -155,36 +177,38 @@ def prove_many(prover_data, common, inputs_list,
 
     proofs = []
     for b, challenger in enumerate(challengers):
-        openings = OpeningSet(
-            constants=[cs_e[b][j] for j in common.constants_range],
-            plonk_sigmas=[cs_e[b][j] for j in common.sigmas_range],
-            wires=w_e[b],
-            plonk_zs=[zp_e[b][j] for j in common.zs_range],
-            plonk_zs_next=[zp_next[b][j] for j in common.zs_range],
-            partial_products=[zp_e[b][j]
-                              for j in common.partial_products_range],
-            quotient_polys=q_e[b],
-        )
-        observe_openings(challenger, openings.to_fri_openings())
+        with host(1, b):
+            openings = OpeningSet(
+                constants=[cs_e[b][j] for j in common.constants_range],
+                plonk_sigmas=[cs_e[b][j] for j in common.sigmas_range],
+                wires=w_e[b],
+                plonk_zs=[zp_e[b][j] for j in common.zs_range],
+                plonk_zs_next=[zp_next[b][j] for j in common.zs_range],
+                partial_products=[zp_e[b][j]
+                                  for j in common.partial_products_range],
+                quotient_polys=q_e[b],
+            )
+            observe_openings(challenger, openings.to_fri_openings())
+            oracles = [cs, wires_commitment.batches[b],
+                       zs_pp_commitment.batches[b],
+                       quotient_commitment.batches[b]]
+            instance = common.get_fri_instance(zetas[b])
 
         # round 5: FRI
-        oracles = [cs, wires_commitment.batches[b],
-                   zs_pp_commitment.batches[b],
-                   quotient_commitment.batches[b]]
-        instance = common.get_fri_instance(zetas[b])
         with scope(7, b):
             opening_proof = PolynomialBatch.prove_openings(
                 instance, oracles, challenger, common.fri_params)
-        proofs.append(ProofWithPublicInputs(
-            proof=Proof(
-                wires_cap=oracles[1].merkle_tree.cap_digests(),
-                plonk_zs_partial_products_cap=oracles[2].merkle_tree
-                .cap_digests(),
-                quotient_polys_cap=oracles[3].merkle_tree.cap_digests(),
-                openings=openings,
-                opening_proof=opening_proof,
-            ),
-            public_inputs=public_inputs[b]))
+        with host(2, b):
+            proofs.append(ProofWithPublicInputs(
+                proof=Proof(
+                    wires_cap=oracles[1].merkle_tree.cap_digests(),
+                    plonk_zs_partial_products_cap=oracles[2].merkle_tree
+                    .cap_digests(),
+                    quotient_polys_cap=oracles[3].merkle_tree.cap_digests(),
+                    openings=openings,
+                    opening_proof=opening_proof,
+                ),
+                public_inputs=public_inputs[b]))
     return proofs
 
 
@@ -288,28 +312,29 @@ def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
     B = len(pi_hashes)
     g_shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
 
-    cs_lde = prover_data.constants_sigmas_commitment.natural_lde(step)
-    wires_lde = wires_commitment.natural_lde(step)          # [W, B, N]
-    zs_pp_lde = zs_pp_commitment.natural_lde(step)
-    device = wires_lde.device
+    device = wires_commitment.coeffs.device
+    with tracing.scope("coset values", device):
+        cs_lde = prover_data.constants_sigmas_commitment.natural_lde(step)
+        wires_lde = wires_commitment.natural_lde(step)      # [W, B, N]
+        zs_pp_lde = zs_pp_commitment.natural_lde(step)
 
-    # coset points x, Z_H(x)^-1 (period 2^qdb) and L_0(x)
-    x = gl.mul_const(gl.powers(ref.primitive_root_of_unity(
-        common.degree_bits + qdb), N, device), g_shift)
-    g_pow_n = ref.exp(g_shift, degree)
-    v = ref.primitive_root_of_unity(qdb)
-    zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
-          for i in range(1 << qdb)]
-    zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
-                       device).repeat(N >> qdb)
-    zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
-                                    dtype=np.uint64),
-                         device).repeat(N >> qdb)
-    l_0_x = gl.mul(zh_t, gl.inverse(gl.mul_const(
-        gl.sub(x, gl.const(1, device)), degree % ref.ORDER)))
-    k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
-                    device).unsqueeze(1)
-    consts = (x, zh_inv, l_0_x, gl.mul(k, x).unsqueeze(1))
+        # coset points x, Z_H(x)^-1 (period 2^qdb) and L_0(x)
+        x = gl.mul_const(gl.powers(ref.primitive_root_of_unity(
+            common.degree_bits + qdb), N, device), g_shift)
+        g_pow_n = ref.exp(g_shift, degree)
+        v = ref.primitive_root_of_unity(qdb)
+        zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
+              for i in range(1 << qdb)]
+        zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
+                           device).repeat(N >> qdb)
+        zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
+                                        dtype=np.uint64),
+                             device).repeat(N >> qdb)
+        l_0_x = gl.mul(zh_t, gl.inverse(gl.mul_const(
+            gl.sub(x, gl.const(1, device)), degree % ref.ORDER)))
+        k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
+                        device).unsqueeze(1)
+        consts = (x, zh_inv, l_0_x, gl.mul(k, x).unsqueeze(1))
 
     per = max(1, ROUND3_POINTS // N)
     values = torch.cat([
@@ -318,9 +343,10 @@ def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
                          betas[lo:lo + per], gammas[lo:lo + per],
                          alphas[lo:lo + per])
         for lo in range(0, B, per)], dim=1)                 # [nc, B, N]
-    coeffs = ntt.coset_ifft(values, shift=g_shift)[..., :qdf * degree]
-    return coeffs.reshape(nc, B, qdf, degree).permute(0, 2, 1, 3).reshape(
-        nc * qdf, B, degree).contiguous()
+    with tracing.scope("quotient iNTT", device):
+        coeffs = ntt.coset_ifft(values, shift=g_shift)[..., :qdf * degree]
+        return coeffs.reshape(nc, B, qdf, degree).permute(
+            0, 2, 1, 3).reshape(nc * qdf, B, degree).contiguous()
 
 
 def _quotient_values(common, consts, cs_lde, wires_lde, zs_pp_lde, pi_hashes,
@@ -340,39 +366,44 @@ def _quotient_values(common, consts, cs_lde, wires_lde, zs_pp_lde, pi_hashes,
         """[r, B, N] -> [r, B N], the B proofs' points side by side."""
         return rows.reshape(rows.shape[0], B * N)
 
-    consts_rows = cs_lde[:common.num_constants].unsqueeze(1).expand(
-        -1, B, -1)
-    sigmas_rows = cs_lde[common.num_constants:].unsqueeze(1)
-    next_zs_pp = torch.roll(zs_pp_lde, -next_step, dims=-1)
-    pi_rows = gl.from_u64(np.asarray(pi_hashes, dtype=np.uint64).T,
-                          device).unsqueeze(-1).expand(-1, -1, N)
-    constraint_rows = evaluate_gate_constraints_rows(
-        common, grid(consts_rows), grid(wires_lde), grid(pi_rows)).view(
-            -1, B, N)
+    with tracing.scope("gate constraints", device):
+        consts_rows = cs_lde[:common.num_constants].unsqueeze(1).expand(
+            -1, B, -1)
+        pi_rows = gl.from_u64(np.asarray(pi_hashes, dtype=np.uint64).T,
+                              device).unsqueeze(-1).expand(-1, -1, N)
+        constraint_rows = evaluate_gate_constraints_rows(
+            common, grid(consts_rows), grid(wires_lde), grid(pi_rows)).view(
+                -1, B, N)
 
-    routed = wires_lde[:nr]
-    one = gl.const(1, device)
-    pp_lo = common.partial_products_range.start
-    num_prods = common.num_partial_products
-    z1_terms, pp_terms = [], []
-    for i in range(nc):
-        beta = _per_proof([b[i] for b in betas], device)
-        gamma = _per_proof([g[i] for g in gammas], device)
-        z_x, z_gx = zs_pp_lde[i], next_zs_pp[i]
-        z1_terms.append(gl.mul(l_0_x, gl.sub(z_x, one)))
-        numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
-        denom = gl.add(gl.add(routed, gl.mul(sigmas_rows, beta)), gamma)
-        nprod = _chunk_products(numer, qdf)
-        dprod = _chunk_products(denom, qdf)
-        pps = zs_pp_lde[pp_lo + i * num_prods:pp_lo + (i + 1) * num_prods]
-        accs = torch.cat([z_x.unsqueeze(0), pps, z_gx.unsqueeze(0)])
-        pp_terms.append(gl.sub(gl.mul(accs[:-1], nprod),
-                               gl.mul(accs[1:], dprod)))
-    terms = torch.cat([torch.stack(z1_terms)] + pp_terms + [constraint_rows])
+    with tracing.scope("permutation terms", device):
+        sigmas_rows = cs_lde[common.num_constants:].unsqueeze(1)
+        next_zs_pp = torch.roll(zs_pp_lde, -next_step, dims=-1)
+        routed = wires_lde[:nr]
+        one = gl.const(1, device)
+        pp_lo = common.partial_products_range.start
+        num_prods = common.num_partial_products
+        z1_terms, pp_terms = [], []
+        for i in range(nc):
+            beta = _per_proof([b[i] for b in betas], device)
+            gamma = _per_proof([g[i] for g in gammas], device)
+            z_x, z_gx = zs_pp_lde[i], next_zs_pp[i]
+            z1_terms.append(gl.mul(l_0_x, gl.sub(z_x, one)))
+            numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
+            denom = gl.add(gl.add(routed, gl.mul(sigmas_rows, beta)), gamma)
+            nprod = _chunk_products(numer, qdf)
+            dprod = _chunk_products(denom, qdf)
+            pps = zs_pp_lde[pp_lo + i * num_prods:pp_lo + (i + 1) * num_prods]
+            accs = torch.cat([z_x.unsqueeze(0), pps, z_gx.unsqueeze(0)])
+            pp_terms.append(gl.sub(gl.mul(accs[:-1], nprod),
+                                   gl.mul(accs[1:], dprod)))
+        terms = torch.cat([torch.stack(z1_terms)] + pp_terms
+                          + [constraint_rows])
 
-    values = []
-    for i in range(nc):
-        apow = torch.stack([gl.powers(a[i], terms.shape[0], device)
-                            for a in alphas], dim=1).unsqueeze(-1)
-        values.append(gl.mul(gl.reduce_sum(gl.mul(terms, apow), 0), zh_inv))
-    return torch.stack(values)
+    with tracing.scope("alpha reduction", device):
+        values = []
+        for i in range(nc):
+            apow = torch.stack([gl.powers(a[i], terms.shape[0], device)
+                                for a in alphas], dim=1).unsqueeze(-1)
+            values.append(gl.mul(gl.reduce_sum(gl.mul(terms, apow), 0),
+                                 zh_inv))
+        return torch.stack(values)

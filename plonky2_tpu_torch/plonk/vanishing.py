@@ -4,6 +4,8 @@ plonk/vanishing_poly.rs:43 at zeta, :118 over the LDE batch).
 The prover evaluates every gate constraint over the whole LDE grid as int64
 tensors (`evaluate_gate_constraints_rows`); the verifier evaluates the same
 generic code at zeta on extension scalars (`eval_vanishing_poly_at_zeta`).
+Over the grid, each gate with constraints is a scope `gate <id>` of the
+thread's active TimingTree (`utils/timing.scope`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from ..field import goldilocks as gl
 from ..field import reference as ref
 from ..gates.gate import EXT, GFAlgebra, compute_filter
+from ..utils import timing as tracing
 
 
 def _check_partial_products(alg, numerators, denominators, partials, z_x,
@@ -66,13 +69,14 @@ def evaluate_gate_constraints_rows(common, consts_rows: torch.Tensor,
     for i, gate in enumerate(common.gates):
         if gate.num_constraints() == 0:
             continue
-        sel_idx = common.selectors_info.selector_indices[i]
-        group = common.selectors_info.groups[sel_idx]
-        filt = compute_filter(alg, i, group, consts_rows[sel_idx],
-                              num_selectors > 1)
-        gc = gate.eval_unfiltered_rows(gate_consts, wires_rows, pi_rows)
-        k = gc.shape[0]
-        total[:k] = gl.add(total[:k], gl.mul(gc, filt))
+        with tracing.scope(f"gate {gate.id()}", wires_rows.device):
+            sel_idx = common.selectors_info.selector_indices[i]
+            group = common.selectors_info.groups[sel_idx]
+            filt = compute_filter(alg, i, group, consts_rows[sel_idx],
+                                  num_selectors > 1)
+            gc = gate.eval_unfiltered_rows(gate_consts, wires_rows, pi_rows)
+            k = gc.shape[0]
+            total[:k] = gl.add(total[:k], gl.mul(gc, filt))
     return total
 
 

@@ -10,6 +10,11 @@ algebra-generic `Stark.eval` over int64 field tensors on the whole natural
 LDE coset, then K1's coset iNTT; the FRI proof is `prove_openings` (its PoW
 wave on K2/K6). Lookup and CTL helper columns are field ops over the whole
 trace (Fermat inverses, exact sum scans).
+
+`timing` scopes the JAX package's phases, and the host work between them
+under the PLONK prover's HOST_SPANS (`challenges`, `proof assembly`); round
+3's scopes are `coset values`, `evaluate constraints` and `quotient iNTT`.
+The tree counts the call's `proofs`.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from ..gates.gate import GFAlgebra
 from ..hash.hashers import PoseidonGoldilocksConfig
 from ..iop.challenger import Challenger
 from ..ops import ntt
-from ..plonk.prover import _eval_at
+from ..plonk.prover import HOST_SPANS, _eval_at
+from ..utils import timing as tracing
 from ..utils.bits import log2_strict
 from ..utils.timing import TimingTree
 from .config import StarkConfig
@@ -57,6 +63,8 @@ def _device(device) -> torch.device:
 def _on(trace, device) -> torch.Tensor:
     """A uint64 numpy trace (or a field tensor) as a tensor on `device`."""
     if isinstance(trace, torch.Tensor):
+        if trace.device.type != device.type:
+            tracing.count("host_reads")     # a copy between host and card
         return trace.to(device)
     return gl.from_u64(np.asarray(trace, dtype=np.uint64), device)
 
@@ -88,6 +96,8 @@ def prove(stark: Stark, config: StarkConfig, trace,
     assert stark.constraint_degree() <= (1 << rate_bits) + 1, \
         "constraint degree must be <= blowup + 1"
 
+    _, challenges, assembly = HOST_SPANS
+    timing.count("proofs")
     with timing.scope("trace to device", device):
         trace_t = _on(trace, device)
     with timing.scope("compute trace commitment", device):
@@ -95,8 +105,9 @@ def prove(stark: Stark, config: StarkConfig, trace,
             trace_t, rate_bits, cap_height, gc.hasher)
 
     if challenger is None:
-        challenger = Challenger(gc.hasher)
-        challenger.observe_cap(trace_commitment.merkle_tree.cap_digests())
+        with timing.scope(challenges):
+            challenger = Challenger(gc.hasher)
+            challenger.observe_cap(trace_commitment.merkle_tree.cap_digests())
 
     # logUp lookups: draw (beta, gamma) challenge pairs, use the betas; with
     # CTLs the shared ctl challenges are reused (reference: prover.rs:131-141)
@@ -110,8 +121,9 @@ def prove(stark: Stark, config: StarkConfig, trace,
         if ctl_challenges is not None:
             pairs = ctl_challenges
         else:
-            pairs = get_grand_product_challenge_set(challenger,
-                                                    config.num_challenges)
+            with timing.scope(challenges):
+                pairs = get_grand_product_challenge_set(
+                    challenger, config.num_challenges)
         lookup_challenges = [beta for beta, _gamma in pairs]
         with timing.scope("compute lookup helper columns", device):
             aux_polys = torch.cat([
@@ -133,9 +145,11 @@ def prove(stark: Stark, config: StarkConfig, trace,
         with timing.scope("compute auxiliary polynomials commitment", device):
             aux_commitment = PolynomialBatch.from_values(
                 aux_polys, rate_bits, cap_height, gc.hasher)
-        challenger.observe_cap(aux_commitment.merkle_tree.cap_digests())
 
-    alphas = challenger.get_n_challenges(config.num_challenges)
+    with timing.scope(challenges):
+        if aux_commitment is not None:
+            challenger.observe_cap(aux_commitment.merkle_tree.cap_digests())
+        alphas = challenger.get_n_challenges(config.num_challenges)
 
     with timing.scope("compute quotient polys", device):
         quotient_chunks = compute_quotient_polys(
@@ -145,13 +159,14 @@ def prove(stark: Stark, config: StarkConfig, trace,
     with timing.scope("compute quotient commitment", device):
         quotient_commitment = PolynomialBatch.from_coeffs(
             quotient_chunks, rate_bits, cap_height, gc.hasher)
-    challenger.observe_cap(quotient_commitment.merkle_tree.cap_digests())
 
-    zeta = challenger.get_extension_challenge()
-    g = ref.primitive_root_of_unity(degree_bits)
-    assert ref.ext2_exp(zeta, degree) != (1, 0), \
-        "Opening point is in the subgroup"
-    zeta_next = ref.ext2_scalar_mul(zeta, g)
+    with timing.scope(challenges):
+        challenger.observe_cap(quotient_commitment.merkle_tree.cap_digests())
+        zeta = challenger.get_extension_challenge()
+        g = ref.primitive_root_of_unity(degree_bits)
+        assert ref.ext2_exp(zeta, degree) != (1, 0), \
+            "Opening point is in the subgroup"
+        zeta_next = ref.ext2_scalar_mul(zeta, g)
 
     requires_ctl = ctl_data is not None and ctl_data.zs_columns
     with timing.scope("openings", device):
@@ -170,29 +185,32 @@ def prove(stark: Stark, config: StarkConfig, trace,
                                   if aux is not None else None),
             ctl_zs_first=ctl_zs_first,
         )
-    observe_openings(challenger, openings.to_fri_openings())
 
-    instance = stark.fri_instance(zeta, g, config,
-                                  num_ctl_helpers=num_ctl_helpers,
-                                  num_ctl_zs=num_ctl_zs)
-    commitments = [trace_commitment]
-    if aux_commitment is not None:
-        commitments.append(aux_commitment)
-    commitments.append(quotient_commitment)
+    with timing.scope(challenges):
+        observe_openings(challenger, openings.to_fri_openings())
+        instance = stark.fri_instance(zeta, g, config,
+                                      num_ctl_helpers=num_ctl_helpers,
+                                      num_ctl_zs=num_ctl_zs)
+        commitments = [trace_commitment]
+        if aux_commitment is not None:
+            commitments.append(aux_commitment)
+        commitments.append(quotient_commitment)
     with timing.scope("FRI opening proof", device):
         opening_proof = PolynomialBatch.prove_openings(
             instance, commitments, challenger, fri_params)
 
-    return StarkProofWithPublicInputs(
-        proof=StarkProof(
-            trace_cap=trace_commitment.merkle_tree.cap_digests(),
-            quotient_polys_cap=quotient_commitment.merkle_tree.cap_digests(),
-            openings=openings,
-            opening_proof=opening_proof,
-            auxiliary_polys_cap=(aux_commitment.merkle_tree.cap_digests()
-                                 if aux_commitment else None),
-        ),
-        public_inputs=list(public_inputs))
+    with timing.scope(assembly):
+        return StarkProofWithPublicInputs(
+            proof=StarkProof(
+                trace_cap=trace_commitment.merkle_tree.cap_digests(),
+                quotient_polys_cap=quotient_commitment.merkle_tree
+                .cap_digests(),
+                openings=openings,
+                opening_proof=opening_proof,
+                auxiliary_polys_cap=(aux_commitment.merkle_tree.cap_digests()
+                                     if aux_commitment else None),
+            ),
+            public_inputs=list(public_inputs))
 
 
 def prove_multi(starks: list[Stark], config: StarkConfig,
@@ -251,59 +269,64 @@ def compute_quotient_polys(stark, config, trace_commitment, aux_commitment,
     g = ref.primitive_root_of_unity(degree_bits)
     last = ref.inverse(g)       # g^{n-1}
 
-    trace_lde = trace_commitment.natural_lde(step)   # [cols, N]
-    device = trace_lde.device
+    device = trace_commitment.polynomials.device
+    with tracing.scope("coset values", device):
+        trace_lde = trace_commitment.natural_lde(step)   # [cols, N]
 
-    # Z_H (period 2^qdb), Lagrange first/last and x - g^{n-1} on the coset
-    g_pow_n = ref.exp(g_shift, degree)
-    v = ref.primitive_root_of_unity(qdb) if qdb else 1
-    zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
-          for i in range(next_step)]
-    zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
-                       device).repeat(N // next_step)
-    zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
-                                    dtype=np.uint64),
-                         device).repeat(N // next_step)
-    x = gl.mul_const(gl.powers(w, N, device), g_shift)
-    one = gl.const(1, device)
-    # L_0(x) = Z_H(x)/(n(x-1)); L_last(x) = Z_H(x)/(n(g x - 1))
-    inv = gl.inverse(gl.mul_const(torch.stack(
-        [gl.sub(x, one), gl.sub(gl.mul_const(x, g), one)]), degree))
-    l_first = gl.mul(zh_t, inv[0])
-    l_last = gl.mul(zh_t, inv[1])
-    z_last = gl.sub(x, gl.const(last, device))
-    del inv, x
+        # Z_H (period 2^qdb), Lagrange first/last and x - g^{n-1} on the
+        # coset
+        g_pow_n = ref.exp(g_shift, degree)
+        v = ref.primitive_root_of_unity(qdb) if qdb else 1
+        zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
+              for i in range(next_step)]
+        zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
+                           device).repeat(N // next_step)
+        zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
+                                        dtype=np.uint64),
+                             device).repeat(N // next_step)
+        x = gl.mul_const(gl.powers(w, N, device), g_shift)
+        one = gl.const(1, device)
+        # L_0(x) = Z_H(x)/(n(x-1)); L_last(x) = Z_H(x)/(n(g x - 1))
+        inv = gl.inverse(gl.mul_const(torch.stack(
+            [gl.sub(x, one), gl.sub(gl.mul_const(x, g), one)]), degree))
+        l_first = gl.mul(zh_t, inv[0])
+        l_last = gl.mul(zh_t, inv[1])
+        z_last = gl.sub(x, gl.const(last, device))
+        del inv, x
 
-    alg = GFAlgebra((N,), device)
+    with tracing.scope("evaluate constraints", device):
+        alg = GFAlgebra((N,), device)
 
-    def rows(t):
-        return list(t), list(torch.roll(t, -next_step, dims=-1))
+        def rows(t):
+            return list(t), list(torch.roll(t, -next_step, dims=-1))
 
-    local, next_ = rows(trace_lde)
-    pis = [alg.const(p) for p in public_inputs]
-    frame = EvaluationFrame(local, next_, pis)
-    consumer = ConstraintConsumer(alg, [alg.const(a) for a in alphas],
-                                  z_last, l_first, l_last)
-    stark.eval(alg, frame, consumer)
-    num_lk = 0
-    if aux_commitment is not None:
-        aux_local, aux_next = rows(aux_commitment.natural_lde(step))
-    if stark.uses_lookups():
-        num_lk = stark.num_lookup_helper_columns(config)
-        eval_lookups(alg, stark, stark.lookups(), local, next_,
-                     aux_local, aux_next,
-                     [alg.const(c) for c in lookup_challenges], consumer)
-    if ctls is not None:
-        max_degree = max(2, stark.constraint_degree())
-        ctl_chals = [(alg.const(b), alg.const(c)) for b, c in ctl_challenges]
-        ctl_zs = list(zip(aux_local[num_lk:], aux_next[num_lk:]))
-        ctl_vars = ctl_check_vars_single(
-            table, ctl_zs, ctls, ctl_chals,
-            num_ctl_counts(ctls, table, max_degree))
-        eval_cross_table_lookup_checks(alg, local, next_, ctl_vars, consumer,
-                                       max_degree)
+        local, next_ = rows(trace_lde)
+        pis = [alg.const(p) for p in public_inputs]
+        frame = EvaluationFrame(local, next_, pis)
+        consumer = ConstraintConsumer(alg, [alg.const(a) for a in alphas],
+                                      z_last, l_first, l_last)
+        stark.eval(alg, frame, consumer)
+        num_lk = 0
+        if aux_commitment is not None:
+            aux_local, aux_next = rows(aux_commitment.natural_lde(step))
+        if stark.uses_lookups():
+            num_lk = stark.num_lookup_helper_columns(config)
+            eval_lookups(alg, stark, stark.lookups(), local, next_,
+                         aux_local, aux_next,
+                         [alg.const(c) for c in lookup_challenges], consumer)
+        if ctls is not None:
+            max_degree = max(2, stark.constraint_degree())
+            ctl_chals = [(alg.const(b), alg.const(c))
+                         for b, c in ctl_challenges]
+            ctl_zs = list(zip(aux_local[num_lk:], aux_next[num_lk:]))
+            ctl_vars = ctl_check_vars_single(
+                table, ctl_zs, ctls, ctl_chals,
+                num_ctl_counts(ctls, table, max_degree))
+            eval_cross_table_lookup_checks(alg, local, next_, ctl_vars,
+                                           consumer, max_degree)
+        quotient_values = torch.stack([gl.mul(acc, zh_inv)
+                                       for acc in consumer.accs])  # [nc, N]
 
-    quotient_values = torch.stack([gl.mul(acc, zh_inv)
-                                   for acc in consumer.accs])   # [nc, N]
-    coeffs = ntt.coset_ifft(quotient_values, shift=g_shift)
-    return coeffs[:, :qdf * degree].reshape(nc * qdf, degree)
+    with tracing.scope("quotient iNTT", device):
+        coeffs = ntt.coset_ifft(quotient_values, shift=g_shift)
+        return coeffs[:, :qdf * degree].reshape(nc * qdf, degree)

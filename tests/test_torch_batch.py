@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import service_circuits as sc
+import timing_labels as tl
 from plonky2_tpu.plonk.batch_prover import prove_batch as jprove_batch
 from plonky2_tpu.utils.timing import TimingTree as JTimingTree
 from plonky2_tpu.utils.serialization import (
@@ -29,6 +30,7 @@ from plonky2_tpu_torch.field import reference as ref
 from plonky2_tpu_torch.fri.oracle import PolynomialBatch, commit_batch
 from plonky2_tpu_torch.hash.hashers import POSEIDON, POSEIDON2
 from plonky2_tpu_torch.plonk.batch_prover import BATCH_SCOPES, prove_batch
+from plonky2_tpu_torch.plonk.prover import HOST_SPANS
 from plonky2_tpu_torch.utils.serialization import serialize_proof_with_pis
 from plonky2_tpu_torch.utils.timing import TimingTree
 
@@ -71,11 +73,17 @@ def check_batch(name: str, B: int, serial) -> None:
     jbatch = jprove_batch(jdata.prover_only, jdata.common,
                           [jinputs(*v) for v in values[:B]], jtiming)
     assert len(batch) == len(jbatch) == B
-    # the scopes: JAX's batch labels in order, one FRI scope a proof
+    # the scopes: JAX's batch labels in order, one FRI scope a proof, and
+    # the port's HOST_SPANS between them; the scopes inside round 3 and FRI
     labels = [label for depth, label, _ in timing.records if depth == 0]
-    assert labels == [node[0] for node in jtiming.root[2]]
-    assert labels == list(BATCH_SCOPES[:-1]) + [
+    jax_labels = [label for label in labels if label not in HOST_SPANS]
+    assert jax_labels == [node[0] for node in jtiming.root[2]]
+    assert jax_labels == list(BATCH_SCOPES[:-1]) + [
         BATCH_SCOPES[-1].format(b=b) for b in range(B)]
+    assert labels == tl.plonk_top(BATCH_SCOPES, B)
+    assert tl.nested(timing) == tl.plonk_nested(data.common, BATCH_SCOPES,
+                                                B)
+    assert timing.counts["proofs"] == B
     for got, want, pis, jwant in zip(batch, serial_bytes, serial_pis,
                                      jbatch):
         raw = serialize_proof_with_pis(got, data.common)

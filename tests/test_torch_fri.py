@@ -107,12 +107,11 @@ def test_pow_wave_takes_smallest_witness():
     state = list(ours.sponge_state)
     for i, x in enumerate(ours.input_buffer):
         state[i] = x
-    threshold = 1 << (64 - 6)
     got = fri._pow_wave(POSEIDON.permute, state, len(ours.input_buffer),
-                        threshold, 64, "cpu")
+                        6, 64, "cpu")
     assert got == jfri.fri_proof_of_work(theirs, 6, batch=64)
     assert got == fri._pow_grind_host(POSEIDON.permute_many_host, state,
-                                      len(ours.input_buffer), threshold, 64)
+                                      len(ours.input_buffer), 6, 64)
 
 
 def test_poseidon2_pow_wave_and_host_grind_take_smallest_witness():
@@ -125,7 +124,7 @@ def test_poseidon2_pow_wave_and_host_grind_take_smallest_witness():
     want = next(w for w in range(1 << 12)
                 if ps2.poseidon2_oracle(state[:pos] + [w] + state[pos + 1:])[7]
                 < threshold)
-    assert fri._pow_wave(POSEIDON2.permute, state, pos, threshold, 64,
+    assert fri._pow_wave(POSEIDON2.permute, state, pos, 6, 64,
                          "cpu") == want
     assert fri._pow_grind_host(POSEIDON2.permute_many_host, state, pos,
-                               threshold, 64) == want
+                               6, 64) == want

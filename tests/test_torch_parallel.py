@@ -39,8 +39,9 @@ from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.fri import oracle
 from plonky2_tpu_torch.hash.hashers import KECCAK, POSEIDON, POSEIDON_BN128
 from plonky2_tpu_torch.parallel import sharding
-from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
+from plonky2_tpu_torch.plonk.prover import HOST_SPANS, SERIAL_SCOPES
 
+import timing_labels
 import torch_parallel_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -178,15 +179,21 @@ def test_fib100_under_prover_mesh(ranks):
     """fib(100) proved on 2 ranks under prover_mesh: both ranks' bytes equal
     the serial proof's and the golden transcript's; its three commits
     (wires, Z and partial products, quotient) went through the mesh; each
-    rank's TimingTree recorded the serial prove's eight scopes."""
+    rank's TimingTree recorded the serial prove's eight scopes in order,
+    the port's HOST_SPANS between them and the scopes inside round 3 and
+    FRI."""
     r0, r1 = ranks["prove"]
     with open(GOLDEN) as f:
         golden = bytes.fromhex(json.load(f)["proof_hex"])
     for r in (r0, r1):
         assert r["fib100_mesh"].tobytes() == golden
         assert r["fib100_serial"].tobytes() == golden
-        assert r["mesh_scopes"].tobytes().decode().split("\n") == \
+        scopes = r["mesh_scopes"].tobytes().decode().split("\n")
+        assert [label for label in scopes if label not in HOST_SPANS] == \
             list(SERIAL_SCOPES)
+        assert scopes == timing_labels.plonk_top(SERIAL_SCOPES, 1)
+        assert json.loads(r["mesh_nested"].tobytes()) == json.loads(
+            r["mesh_expected_nested"].tobytes())
     assert r0["mesh_commits"][0] == 3
 
 

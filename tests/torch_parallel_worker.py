@@ -136,9 +136,13 @@ def _fib100():
 
 
 def prove(rank, world):
+    import json
+
     import stark_circuits
+    import timing_labels
     from plonky2_tpu_torch.parallel import sharding
     from plonky2_tpu_torch.parallel.sharding import make_mesh, prover_mesh
+    from plonky2_tpu_torch.plonk.prover import SERIAL_SCOPES
     from plonky2_tpu_torch.starky.config import StarkConfig
     from plonky2_tpu_torch.starky.prover import prove as stark_prove
     from plonky2_tpu_torch.starky.verifier import verify_stark_proof
@@ -184,7 +188,11 @@ def prove(rank, world):
                                         len(commits) - plonk_commits]),
             "mesh_scopes": b("\n".join(
                 label for depth, label, _ in timing.records
-                if depth == 0).encode())}
+                if depth == 0).encode()),
+            "mesh_nested": b(json.dumps(timing_labels.nested(timing))
+                             .encode()),
+            "mesh_expected_nested": b(json.dumps(timing_labels.plonk_nested(
+                data.common, SERIAL_SCOPES, 1)).encode())}
 
 
 def commit(rank, world):
