@@ -6,6 +6,13 @@
 Phases, each of which raises on failure:
   1. build the CUDA kernels from plonky2_tpu_torch/csrc (one nvcc per
      source, in parallel, sm_90a);
+  1a. field: csrc/field.cu, the field arithmetic (each Goldilocks and
+     extension op one launch), against its plain version on the card, bit
+     for bit, on random and edge values (non-canonical ones included) at
+     the main path's broadcast shapes, with 0-d CUDA and CPU operands and
+     strided views; each case's device ms beside its byte or operation
+     bound, and the host microseconds and kernels of one op, kernel and
+     plain; its records `field` and `field_ext` join the kernel table;
   2. fib100: build (seed 1234), prove and verify with the port under
      PoseidonGoldilocksConfig, and match every field of
      tests/golden/fib100_transcript.json, proof bytes included;
@@ -41,7 +48,8 @@ Phases, each of which raises on failure:
      BN128 permutations with one thread and with every core. Each is
      verified and tamper-checked; the seconds of the host hashing (the
      trees, the PoW grind) in the build and each prove are logged apart;
-     only K1 may launch (the commits hash on the host); the fib100-wraps'
+     only K1 and the field kernels may launch (the commits hash on the
+     host); the fib100-wraps'
      proof bytes go to chiprun_out/ (for the JAX package's verifier, run
      with `--gc`);
   7. cyclic-ivc: the reference's test_cyclic_recursion at
@@ -154,7 +162,8 @@ Phases, each of which raises on failure:
      its Chrome trace names the prover's eight scopes and holds events of
      K1's, K2's (both entries) and K3's CUDA functions; the card's busy
      share inside the prove's scopes;
-  10. every kernel against its plain PyTorch version on the card, at every
+  10. every other kernel (phase 1a holds the field records) against its
+     plain PyTorch version on the card, at every
      shape phases 3, 5-9, 9a-9c, 9e-9h, 9j-9m and 9o launched it at, and K7 at
      zk-fib's salted leaf widths as well (tolerance:
      bit-exact), over full outputs, except where the plain version would
@@ -186,10 +195,11 @@ Phases, each of which raises on failure:
      ones of each hasher to be the smallest that does.
 The kernel counts are set to 0 just before each of phases 3, 5-9, 9a-9c,
 9e-9h, 9j-9m and 9o (6a's three drives included) and
-read just after it; a kernel of a phase's path that it never launched fails
-the phase. The line before the last is the kernel table as JSON; the last
-line is {"ok": true, "device": {...}}. Exits non-zero without a GPU, and
-imports nothing of JAX or of the JAX package.
+read just after it; a kernel of a phase's path (the field records on every
+one) that it never launched fails the phase. The line before the last is
+the kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+Exits non-zero without a GPU, and imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -217,11 +227,14 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 P2 = "Poseidon2GoldilocksConfig"
 KECCAK_GC = "KeccakGoldilocksConfig"
 BN128_GC = "PoseidonBN128GoldilocksConfig"
-# the kernels of a path under each hasher config
+# the kernels of a path under each hasher config: the field arithmetic's
+# (csrc/field.cu) on every one; only K1 besides under a host hasher
+FIELD_KERNELS = ("field", "field_ext")
 POSEIDON_PATH = ("ntt", "poseidon_permute", "poseidon_merkle_tree",
-                 "poseidon_hash_leaves")
+                 "poseidon_hash_leaves") + FIELD_KERNELS
 POSEIDON2_PATH = ("ntt", "poseidon2_permute", "poseidon2_merkle_tree",
-                  "poseidon2_hash_leaves")
+                  "poseidon2_hash_leaves") + FIELD_KERNELS
+HOST_HASH_PATH = ("ntt",) + FIELD_KERNELS
 
 P = (1 << 64) - (1 << 32) + 1      # the Goldilocks prime
 # H100 SXM: HBM bytes/s (NVIDIA data sheet) and the 32-bit integer
@@ -540,7 +553,7 @@ def _drive(name: str, device, build, kernels: tuple,
                              f"path: {missing}")
     common = data.common
     hasher = common.gc.hasher
-    hashed = [k for k in launches if k != "ntt" and launches[k]]
+    hashed = [k for k in launches if k not in HOST_HASH_PATH and launches[k]]
     if not hasher.device and hashed:
         raise AssertionError(f"{name}: {hasher.name} hashes on the host, "
                              f"yet {hashed} launched")
@@ -669,16 +682,17 @@ def outer_keccak(device, fib, wrap):
     """The fib100-wrap committed under KeccakGoldilocksConfig (the outer
     proof of a chain, for an EVM verifier), proved cold and once warm; then
     wrap-2 under Keccak, the verifier of wrap-1's Poseidon proof, proved
-    once. Only K1 runs on the card; the trees, the challenger and the PoW
-    hash on the host."""
+    once. Only K1 and the field arithmetic run on the card; the trees, the
+    challenger and the PoW hash on the host."""
     from plonky2_tpu_torch.hash.hashers import CONFIGS
     gc = CONFIGS[KECCAK_GC]
     run, data, (proof, *_) = _drive("outer-keccak fib100-wrap", device,
-                                    _wrap_build(*fib, device, gc), ("ntt",),
+                                    _wrap_build(*fib, device, gc), HOST_HASH_PATH,
                                     proves=2)
     _write_proof("fib100_wrap_keccak_proof.bin", data, proof)
     run2 = _drive("outer-keccak wrap-2", device,
-                  _wrap_build(*wrap, device, gc), ("ntt",), proves=1)[0]
+                  _wrap_build(*wrap, device, gc), HOST_HASH_PATH,
+                  proves=1)[0]
     return run, run2
 
 
@@ -709,7 +723,8 @@ def outer_poseidon_bn128(device, fib):
         + f" each; the batches use {os.cpu_count()} threads")
     run, data, (proof, *_) = _drive(
         "outer-poseidon-bn128 fib100-wrap", device,
-        _wrap_build(*fib, device, CONFIGS[BN128_GC]), ("ntt",), proves=1)
+        _wrap_build(*fib, device, CONFIGS[BN128_GC]), HOST_HASH_PATH,
+        proves=1)
     _write_proof("fib100_wrap_bn128_proof.bin", data, proof)
     return run
 
@@ -873,7 +888,8 @@ def cyclic_ivc(device):
     log(f"cyclic-ivc: goal CommonCircuitData (host layout) {t_goal:.3f} s; "
         f"build parts {({k: round(v, 3) for k, v in seconds.items()})} s")
     for name in POSEIDON_PATH:
-        log(f"cyclic-ivc: {name} launches by shape {run[1][name]}")
+        if name not in FIELD_KERNELS:
+            log(f"cyclic-ivc: {name} launches by shape {run[1][name]}")
     return run
 
 
@@ -1091,7 +1107,8 @@ def _batch_vs_serial(name: str, device, data, kernels: tuple,
         raise AssertionError(f"{name}: kernels never launched by the main "
                              f"path: {missing}")
     log(f"{name}: launches {launches}")
-    log(f"{name}: warm batch shapes {warm}")
+    log(f"{name}: warm batch shapes "
+        f"{ {k: v for k, v in warm.items() if k not in FIELD_KERNELS} }")
     return (launches, shapes, warm), serial
 
 
@@ -1868,6 +1885,224 @@ def _cases(name, shape, rand, rng):
             f"{LEAF_SAMPLE} of {shape[1]} leaves")
 
 
+# csrc/field.cu: the elementwise multiplies a call needs, for its bound
+def _field_muls(op: str, exponent: int = 0) -> int:
+    if op == "mul":
+        return 1
+    if op == "ext mul":
+        return 4                  # a0 b0, a1 b1, a0 b1, a1 b0; 7 t is small
+    if op == "exp":
+        return max(exponent.bit_length() - 1, 0) + bin(exponent).count("1")
+    return 0
+
+
+def _field_cases(device, raw, halves):
+    """(label, record, op, kernel call, plain call, operands read, field
+    multiplies an element) of csrc/field.cu's checks: the main path's
+    broadcast shapes (the partial products' [80, 1, 2^14] x [1, 4, 1] and
+    their inverses over [80, 4, 2^14], the alpha reduction's [num, N] x
+    [num, 1], the STARK's [2, 2^21] rows), 0-d CUDA and CPU operands, a
+    constant, transposed and sliced views, on raw 64-bit patterns (half of
+    them edge values, canonical or not); reduce_lh on sums of halves below
+    2^62."""
+    from plonky2_tpu_torch.field import extension as ext
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.field.extension import GF2
+
+    n = 1 << 21
+    pp, pb = raw(80, 1, 1 << 14), raw(1, 4, 1)
+    polys, apow = raw(135, 1 << 17), raw(135, 1)
+    rows, rows2 = raw(2, n), raw(2, n)
+    x, y = raw(n), raw(n)
+    cuda0, cpu0 = raw(), raw().cpu()
+    wide, tall = raw(1 << 9, 1 << 13), raw(1 << 12, 1 << 9)
+    lo, hi = halves(n), halves(n)
+    a, b = GF2(raw(n), raw(n)), GF2(raw(n), raw(n))
+    beta = GF2(raw(), raw())
+    folds = GF2(raw(1 << 18, 8), raw(1 << 18, 8))
+    cases = [
+        ("mul [80, 1, 2^14] x [1, 4, 1]", "mul", gl.mul, gl.mul_plain,
+         (pp, pb)),
+        ("mul [135, 2^17] x [135, 1]", "mul", gl.mul, gl.mul_plain,
+         (polys, apow)),
+        ("add [2, 2^21]", "add", gl.add, gl.add_plain, (rows, rows2)),
+        ("sub [2, 2^21]", "sub", gl.sub, gl.sub_plain, (rows, rows2)),
+        ("mul [2, 2^21]", "mul", gl.mul, gl.mul_plain, (rows, rows2)),
+        ("mul [2^21] x 0-d cuda", "mul", gl.mul, gl.mul_plain, (x, cuda0)),
+        ("add 0-d cpu x [2^21]", "add", gl.add, gl.add_plain, (cpu0, x)),
+        ("sub 0-d cuda x 0-d cpu", "sub", gl.sub, gl.sub_plain,
+         (cuda0, cpu0)),
+        ("mul [2^9, 2^13][:, ::2] x [2^12, 2^9].T", "mul", gl.mul,
+         gl.mul_plain, (wide[:, ::2], tall.t())),
+        ("sub [2, 2^21][:, 1:] x [2^21 - 1]", "sub", gl.sub, gl.sub_plain,
+         (rows[:, 1:], y[1:])),
+        ("neg [2^21]", "sub", gl.neg, gl.neg_plain, (x,)),
+        ("mul_small 7 [2^21]", "mul", lambda t: gl.mul_small(t, 7),
+         lambda t: gl.mul_small_plain(t, 7), (x,)),
+        ("mul_const p - 2 [2^21]", "mul", lambda t: gl.mul_const(t, P - 2),
+         lambda t: gl.mul_const_plain(t, P - 2), (x,)),
+        ("add_const 2^40 [2^21]", "add", lambda t: gl.add_const(t, 1 << 40),
+         lambda t: gl.add_const_plain(t, 1 << 40), (x,)),
+        ("reduce_lh [2^21]", "reduce_lh", gl.reduce_lh, gl._reduce_lh,
+         (lo, hi)),
+        ("inverse [80, 4, 2^14]", "exp", gl.inverse,
+         lambda t: gl.exp_plain(t, P - 2), (raw(80, 4, 1 << 14),)),
+        ("inverse [2, 2^21]", "exp", gl.inverse,
+         lambda t: gl.exp_plain(t, P - 2), (rows,)),
+    ]
+    cases = [(label, "field", op, run, plain, xs, _field_muls(
+        op, P - 2 if "inverse" in label else 0))
+        for label, op, run, plain, xs in cases]
+    for e in (0, 1, 7, P - 1, (1 << 64) - 1):
+        cases.append((f"exp {e} [2^16]", "field", "exp",
+                      lambda t, e=e: gl.exp(t, e),
+                      lambda t, e=e: gl.exp_plain(t, e), (x[:1 << 16],),
+                      _field_muls("exp", e)))
+    ext_cases = [
+        ("ext add [2^21]", "add", (a, b)), ("ext sub [2^21]", "sub", (a, b)),
+        ("ext mul [2^21]", "mul", (a, b)),
+        ("ext mul [2^21] x 0-d cuda", "mul", (a, beta)),
+        ("ext mul [2^18, 8][:, 3] x 0-d", "mul", (folds[:, 3], beta)),
+        ("ext mul [135, 2^12] x [135, 1]", "mul",
+         (GF2(polys[:, :1 << 12], polys[:, 1:1 + (1 << 12)]),
+          GF2(apow, apow + 0)))]
+    for label, op, (u, v) in ext_cases:
+        cases.append((
+            label, "field_ext", op,
+            lambda a0, a1, b0, b1, op=op: getattr(GF2, f"__{op}__")(
+                GF2(a0, a1), GF2(b0, b1)),
+            lambda a0, a1, b0, b1, op=op: getattr(ext, f"{op}_plain")(
+                GF2(a0, a1), GF2(b0, b1)),
+            (u.c0, u.c1, v.c0, v.c1), _field_muls(f"ext {op}")))
+    return cases
+
+
+def _host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds a call of `fn` on tiny tensors: the kernels finish
+    faster than the host enqueues them, so the host's time is the call's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def _cuda_kernels(fn) -> int:
+    """Kernels one call of `fn` launches on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+@phase("field")
+def field(device, clock_mhz):
+    """csrc/field.cu against the plain version (field/goldilocks.py and
+    field/extension.py's `*_plain`, PyTorch ops on the card) at the cases of
+    `_field_cases`, bit for bit; each case's device ms beside its bound and
+    the plain version's ms; the host microseconds of a call and the kernels
+    one op launches, kernel and plain. Returns the kernel table's entries
+    of the two records."""
+    from plonky2_tpu_torch import backend
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.field.extension import GF2
+    from plonky2_tpu_torch.field import extension as ext
+
+    rng = np.random.default_rng(20)
+    edge = np.asarray(EDGE + [1 << 63, (1 << 64) - (1 << 32)],
+                      dtype=np.uint64)
+    sums = np.asarray([0, 1, (1 << 32) - 1, 1 << 32, (1 << 62) - 1],
+                      dtype=np.int64)
+
+    def mixed(x, values):
+        pick = rng.random(x.shape) < 0.5
+        x[pick] = values[rng.integers(0, len(values), size=int(pick.sum()))]
+        return torch.from_numpy(x.view(np.int64)).to(device)
+
+    def raw(*shape):
+        return mixed(rng.integers(0, 1 << 64, size=shape, dtype=np.uint64),
+                     edge)
+
+    def halves(*shape):
+        return mixed(rng.integers(0, 1 << 62, size=shape, dtype=np.int64),
+                     sums)
+
+    entries = {k: {"name": k, "route": "cuda",
+                   "source": backend.KERNELS[k].source,
+                   "replaces": backend.KERNELS[k].replaces,
+                   "max_abs_err": 0, "library_ms": None, "per_shape": []}
+               for k in FIELD_KERNELS}
+    for label, record, op, run, plain, xs, muls in _field_cases(
+            device, raw, halves):
+        want, plain_ms = _timed_ms(lambda: plain(*xs))
+        got = run(*xs)
+        pairs = ([(got.c0, want.c0), (got.c1, want.c1)]
+                 if record == "field_ext" else [(got, want)])
+        err = max(_max_abs_err(g, w) for g, w in pairs)
+        if err:
+            raise AssertionError(f"field: {label} disagrees with the plain "
+                                 f"version (max abs err {err})")
+        before = backend.KERNELS[record].launches
+        run(*xs)
+        if backend.KERNELS[record].launches - before != 1:
+            raise AssertionError(f"field: {label} launched "
+                                 f"{backend.KERNELS[record].launches - before}"
+                                 f" {record} kernels")
+        out = pairs[0][0]
+        limbs = len(pairs)
+        nbytes = 8 * (sum(t.numel() for t in xs if t.is_cuda)
+                      + limbs * out.numel())
+        imads = MIN_IMAD_PER_FIELD_MUL * muls * out.numel()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = imads / (SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6) * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        ms = _device_ms(lambda: run(*xs), 20)
+        log(f"field {label}: max_abs_err 0, device {ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), x bound {ms / bound_ms:.2f}, "
+            f"plain {plain_ms:.4f} ms")
+        entries[record]["per_shape"].append({
+            "shape": label, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del want, got, pairs, out
+    a, b = raw(64), raw(64)
+    u, v = GF2(raw(64), raw(64)), GF2(raw(64), raw(64))
+    calls = {"mul": (lambda: gl.mul(a, b), lambda: gl.mul_plain(a, b)),
+             "add": (lambda: gl.add(a, b), lambda: gl.add_plain(a, b)),
+             "sub": (lambda: gl.sub(a, b), lambda: gl.sub_plain(a, b)),
+             "inverse": (lambda: gl.inverse(a),
+                         lambda: gl.exp_plain(a, P - 2)),
+             "ext mul": (lambda: u * v, lambda: ext.mul_plain(u, v))}
+    per_op = {}
+    for name, (kernel, plain) in calls.items():
+        per_op[name] = {
+            "host_us": _host_us(kernel), "kernels": _cuda_kernels(kernel),
+            "plain_host_us": _host_us(plain, 20 if name == "inverse" else
+                                      200),
+            "plain_kernels": _cuda_kernels(plain)}
+        log(f"field {name} on [64]: host {per_op[name]['host_us']:.1f} us "
+            f"and {per_op[name]['kernels']} kernel(s) a call; plain "
+            f"{per_op[name]['plain_host_us']:.1f} us and "
+            f"{per_op[name]['plain_kernels']} kernels")
+    for e in entries.values():
+        largest = max(e["per_shape"], key=lambda r: r["bound_ms"])
+        e.update({"shape": largest["shape"], "ms": largest["ms"],
+                  "plain_ms": largest["plain_ms"],
+                  "bound_ms": largest["bound_ms"],
+                  "bound_by": largest["bound_by"]})
+    entries["field"]["per_op"] = per_op
+    return list(entries.values())
+
+
 @phase("kernels vs plain")
 def kernels_vs_plain(device, runs, clock_mhz):
     """runs: {phase: (launches, shapes, warm shapes)} of the main path's
@@ -1883,6 +2118,8 @@ def kernels_vs_plain(device, runs, clock_mhz):
 
     table = []
     for kern in backend.KERNELS.values():
+        if kern.name in FIELD_KERNELS:
+            continue          # the `field` phase holds them
         launches = sum(r[0][kern.name] for r in runs.values())
         shapes = {}
         for r in runs.values():
@@ -2374,7 +2611,7 @@ def four_step_lde(device):
             timings.append((seconds, peak, timing.seconds()))
             results.append(out)
             del out
-        run = _read_counts("four-step-lde", ("ntt",), before)
+        run = _read_counts("four-step-lde", ("ntt", "field"), before)
     out = results[-1]
     if not torch.equal(results[0], out):
         raise AssertionError("four-step-lde: two runs differ")
@@ -2809,6 +3046,7 @@ def main() -> int:
     for line in backend.PTXAS_REPORT.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(line.strip())
+    field_table = field(device, clock)
 
     fib = fib100(device)
     runs = {}
@@ -2854,6 +3092,9 @@ def main() -> int:
     runs["examples"] = examples(device)
     profile(device)
     table = kernels_vs_plain(device, runs, clock)
+    for entry in field_table:
+        entry["launches"] = sum(r[0][entry["name"]] for r in runs.values())
+    table += field_table
     k1_past_2_19(device, table, clock)
     edge_batches(device, table)
     pow_stress(device)

@@ -70,6 +70,15 @@ KERNELS = {
     "poseidon2_hash_leaves": Kernel(
         "poseidon2_hash_leaves", "plonky2_tpu_torch/csrc/poseidon2.cu",
         "plonky2_tpu/ops/pallas_poseidon2.py:161"),
+    # the elementwise field arithmetic of field/goldilocks.py (entry
+    # field_binary) and field/extension.py (field_ext); a shape is (op,
+    # output shape). No Pallas kernel: the JAX package's is jnp, fused by XLA
+    "field": Kernel(
+        "field", "plonky2_tpu_torch/csrc/field.cu",
+        "none (plonky2_tpu/field/goldilocks.py, jnp)"),
+    "field_ext": Kernel(
+        "field_ext", "plonky2_tpu_torch/csrc/field.cu",
+        "none (plonky2_tpu/field/extension.py, jnp)"),
 }
 
 
@@ -223,8 +232,11 @@ def build() -> float:
         getattr(lib, name).argtypes = [p, p, i, ll, p]
     for name in ("poseidon_merkle_tree", "poseidon2_merkle_tree"):
         getattr(lib, name).argtypes = [p, p, ll, i, p, out_count]
-    for name in [k for k in KERNELS if k != "ntt"] + ["ntt_forward",
-                                                      "ntt_inverse"]:
+    plan = ctypes.c_char_p       # packed 64-bit words
+    lib.field_binary.argtypes = [i, p, plan, p]
+    lib.field_ext.argtypes = [i, p, p, plan, p]
+    for name in [k for k in KERNELS if k not in ("ntt", "field")] + [
+            "ntt_forward", "ntt_inverse", "field_binary"]:
         getattr(lib, name).restype = i
     _LIB = lib
     return time.perf_counter() - t0
@@ -251,15 +263,21 @@ def require_cuda_int64(t: torch.Tensor, name: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device, as the C entries take it."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def call(entry: str, t: torch.Tensor, *args) -> int:
     """C entry `entry` of the library on `args`, with t's device current:
     the entries key their per-device state (K1's shared-memory attribute,
-    the SM count of the sponge grids) by `cudaGetDevice`."""
+    the SM count of the sponge grids) by `cudaGetDevice`. The device is
+    switched only when it is not current already (a field op costs
+    microseconds of host time)."""
+    fn = getattr(lib(), entry)
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args)
     with torch.cuda.device(t.device):
-        return getattr(lib(), entry)(*args)
+        return fn(*args)
 
 
 def plain_path(t: torch.Tensor, name: str) -> bool:

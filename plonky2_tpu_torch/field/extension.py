@@ -1,5 +1,9 @@
 """Quadratic extension F_p[X]/(X^2 - 7): arrays of c0 + c1*X as a pair of
-int64 field tensors (reference layout of plonky2_tpu/field/extension.py)."""
+int64 field tensors (reference layout of plonky2_tpu/field/extension.py).
+
+`+`, `-` and `*` take the plain version (`add_plain`, ...) for CPU tensors
+and, for CUDA tensors, one launch of csrc/field.cu (`field_ext`) that
+writes both limbs."""
 
 from __future__ import annotations
 
@@ -7,6 +11,7 @@ import dataclasses
 
 import torch
 
+from .. import backend
 from . import reference as ref
 
 from . import goldilocks as gl
@@ -45,21 +50,59 @@ class GF2:
                    torch.cat([p.c1 for p in parts], dim))
 
     def __add__(self, o: "GF2") -> "GF2":
-        return GF2(gl.add(self.c0, o.c0), gl.add(self.c1, o.c1))
+        if backend.plain_path(gl.lead(self.c0, o.c0), "GF2.__add__"):
+            return add_plain(self, o)
+        return _ext("add", self, o)
 
     def __sub__(self, o: "GF2") -> "GF2":
-        return GF2(gl.sub(self.c0, o.c0), gl.sub(self.c1, o.c1))
+        if backend.plain_path(gl.lead(self.c0, o.c0), "GF2.__sub__"):
+            return sub_plain(self, o)
+        return _ext("sub", self, o)
 
     def __mul__(self, o: "GF2") -> "GF2":
-        a0, a1, b0, b1 = self.c0, self.c1, o.c0, o.c1
-        return GF2(gl.add(gl.mul(a0, b0), gl.mul_small(gl.mul(a1, b1), W)),
-                   gl.add(gl.mul(a0, b1), gl.mul(a1, b0)))
+        if backend.plain_path(gl.lead(self.c0, o.c0), "GF2.__mul__"):
+            return mul_plain(self, o)
+        return _ext("mul", self, o)
 
     def reduce_sum(self, dim=0) -> "GF2":
         return GF2(gl.reduce_sum(self.c0, dim), gl.reduce_sum(self.c1, dim))
 
     def to_pairs(self) -> list:
         return list(zip(gl.to_ints(self.c0), gl.to_ints(self.c1)))
+
+
+def add_plain(a: GF2, b: GF2) -> GF2:
+    return GF2(gl.add_plain(a.c0, b.c0), gl.add_plain(a.c1, b.c1))
+
+
+def sub_plain(a: GF2, b: GF2) -> GF2:
+    return GF2(gl.sub_plain(a.c0, b.c0), gl.sub_plain(a.c1, b.c1))
+
+
+def mul_plain(a: GF2, b: GF2) -> GF2:
+    a0, a1, b0, b1 = a.c0, a.c1, b.c0, b.c1
+    return GF2(gl.add_plain(gl.mul_plain(a0, b0),
+                            gl.mul_small_plain(gl.mul_plain(a1, b1), W)),
+               gl.add_plain(gl.mul_plain(a0, b1), gl.mul_plain(a1, b0)))
+
+
+def _ext(name: str, a: GF2, b: GF2) -> GF2:
+    """One launch of `field_ext` (op `name`) over a and b. The limbs of an
+    operand share their shape, so both output limbs have the broadcast
+    shape of all four."""
+    for x in (a, b):
+        if x.c0.shape != x.c1.shape:
+            raise ValueError(f"GF2 {name}: limbs of shapes "
+                             f"{tuple(x.c0.shape)} and {tuple(x.c1.shape)}")
+    xs = (a.c0, a.c1, b.c0, b.c1)
+    device, shape, words = gl.plan(name, xs)
+    c0, c1 = gl.empty(xs, shape, device), gl.empty(xs, shape, device)
+    if c0.numel():
+        backend.check(backend.call(
+            "field_ext", c0, gl.EXT_OPS[name], c0.data_ptr(), c1.data_ptr(),
+            words, backend.stream(c0)), "field_ext")
+        backend.KERNELS["field_ext"].launched((name, tuple(shape)))
+    return GF2(c0, c1)
 
 
 def gf2_powers(base, n: int, device) -> GF2:

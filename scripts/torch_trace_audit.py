@@ -20,6 +20,10 @@ For each cell, after a cold and a warm call under a disabled tree:
   longest idle stretches outside every depth-0 span;
 - idle by proof: in a batch, the idle inside each proof's spans (those
   that carry the proof's index `b`);
+- launches by span, in the same capture: the card's kernels a proof, by
+  the innermost scope open when each starts, split into the field
+  arithmetic's (csrc/field.cu), the other hand kernels' (K1-K3, K6, K7)
+  and PyTorch's own (aten glue), with the aten kernels that launch most;
 - the cost of tracing: `--pairs` pairs of calls on the same inputs, one
   untraced and one traced, the side that runs first alternating, with
   the median of the pairs' ratios and its quartiles.
@@ -35,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import threading
@@ -51,6 +56,36 @@ SMALL = {"recursion_leaf_d14": {"degree_bits": 6},
          "starky_fib_r20": {"degree_bits": 8}}
 SEED = 2 ** 31 + 1913
 OWN_SYNC = os.path.join("utils", "timing.py")
+# the profiler's names of the hand kernels' CUDA functions
+FIELD_KERNELS = re.compile(r"\bfield_(binary|ext)_kernel\b")
+HAND_KERNELS = re.compile(r"\bntt_(row|tiles|columns)\b|"
+                          r"\b(permute|merkle|hash_leaves(_lanes)?)_kernel\b")
+
+
+def kernel_kind(name: str) -> str:
+    if FIELD_KERNELS.search(name):
+        return "field"
+    return "hand" if HAND_KERNELS.search(name) else "aten"
+
+
+def launches_by_span(data, proofs: int) -> dict:
+    """The capture's kernels a proof by the innermost scope open when each
+    starts on the card, by kind, and the aten kernels that launch most."""
+    by_span: dict = {}
+    aten = Counter()
+    for name, start, _ in data.kernels:
+        kind = kernel_kind(name)
+        by_span.setdefault(data.open_scope(start), Counter())[kind] += 1
+        if kind == "aten":
+            aten[name[:160]] += 1
+    total = sum(by_span.values(), Counter())
+    return {"per_proof": {k: v / proofs for k, v in total.items()},
+            "by_span": {label: {k: v / proofs for k, v in c.items()}
+                        for label, c in sorted(
+                            by_span.items(),
+                            key=lambda kv: -kv[1]["aten"] - kv[1]["field"])},
+            "aten_most": [(name, n / proofs)
+                          for name, n in aten.most_common(15)]}
 
 
 def _site(stack) -> str:
@@ -187,7 +222,8 @@ def idle_by_span(call, proofs: int) -> dict:
         for s, (start, end) in zip(spans, ranges.get(label, [])):
             skew = max(skew, abs(s.start_ns - start), abs(s.end_ns - end))
     ns = 1e-9
-    return {"window_s": data.window_s, "busy_s": data.busy_s(),
+    return {"launches": launches_by_span(data, proofs),
+            "window_s": data.window_s, "busy_s": data.busy_s(),
             "idle_s": idle_total * ns, "outside_s": outside * ns,
             "idle_in_span_s": {k: v * ns for k, v in inside.most_common()},
             "self_idle_s": {k: v * ns for k, v in self_idle.most_common()},
@@ -309,6 +345,7 @@ def main(argv=None) -> int:
             "missed": reads.get("missed_sites"),
             "uncalled_for": reads.get("uncalled_for_sites"),
             "idle_s": idle["idle_s"], "outside_s": idle["outside_s"],
+            "launches_per_proof": idle["launches"]["per_proof"],
             "skew_ns": idle["span_vs_range_max_ns"],
             "cost_pct": r["cost"]["cost_pct"],
             "cost_pct_quartiles": r["cost"]["cost_pct_quartiles"]}),
