@@ -17,6 +17,7 @@ from collections import defaultdict
 import numpy as np
 
 from ..field import reference as ref
+from ..utils import timing
 from .witness import PartialWitness, PartitionWitness
 
 
@@ -87,16 +88,23 @@ class RandomValueGenerator(SimpleGenerator):
 
 def generate_partial_witness(inputs: PartialWitness, prover_data,
                              common) -> PartitionWitness:
-    """Worklist fixpoint over generators (reference: generator.rs:26-100)."""
+    """Worklist fixpoint over generators (reference: generator.rs:26-100).
+
+    Under the thread's active TimingTree, two host spans: `generator index`
+    (the watchers of each representative) and `generator passes` (the
+    worklist), and two counters, added once at the end: `generator_runs`,
+    the calls of a generator's `run`, retries included, and
+    `generator_passes`, the passes of the worklist."""
     witness = PartitionWitness(prover_data.representative_map,
                                common.config.num_wires, common.degree)
     generators = prover_data.generators
 
     # Index generators by the representative of each watched target.
-    watchers: dict[int, list[int]] = defaultdict(list)
-    for gi, g in enumerate(generators):
-        for t in g.watch_list():
-            watchers[witness.rep_index(t)].append(gi)
+    with timing.scope("generator index"):
+        watchers: dict[int, list[int]] = defaultdict(list)
+        for gi, g in enumerate(generators):
+            for t in g.watch_list():
+                watchers[witness.rep_index(t)].append(gi)
 
     newly_set: list[int] = []
     for t, v in inputs.values.items():
@@ -108,27 +116,33 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
     # First pass: try everything once (dependency-free generators fire here).
     queue = list(range(len(generators)))
     buf: list = []
-    while queue:
-        next_queue: list[int] = []
-        for gi in queue:
-            if gi not in remaining:
-                continue
-            buf.clear()
-            if generators[gi].run(witness, buf):
-                remaining.discard(gi)
-                for t, v in buf:
-                    r = witness.set(t, v)
-                    if r is not None:
-                        newly_set.append(r)
-        # requeue watchers of anything that changed
-        seen = set()
-        for r in newly_set:
-            for gi in watchers.get(r, ()):
-                if gi in remaining and gi not in seen:
-                    seen.add(gi)
-                    next_queue.append(gi)
-        newly_set.clear()
-        queue = next_queue
+    runs = passes = 0
+    with timing.scope("generator passes"):
+        while queue:
+            passes += 1
+            next_queue: list[int] = []
+            for gi in queue:
+                if gi not in remaining:
+                    continue
+                buf.clear()
+                runs += 1
+                if generators[gi].run(witness, buf):
+                    remaining.discard(gi)
+                    for t, v in buf:
+                        r = witness.set(t, v)
+                        if r is not None:
+                            newly_set.append(r)
+            # requeue watchers of anything that changed
+            seen = set()
+            for r in newly_set:
+                for gi in watchers.get(r, ()):
+                    if gi in remaining and gi not in seen:
+                        seen.add(gi)
+                        next_queue.append(gi)
+            newly_set.clear()
+            queue = next_queue
+    timing.count("generator_runs", runs)
+    timing.count("generator_passes", passes)
 
     assert not remaining, \
         f"{len(remaining)} generators never ran (missing witness inputs?)"

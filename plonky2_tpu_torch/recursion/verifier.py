@@ -155,19 +155,29 @@ def verify_proof_with_challenges_circuit(builder, proof, public_inputs_hash,
         merkle_caps, proof.opening_proof, common.fri_params)
 
 
-def wrap_circuit(inner: CircuitData):
+def wrap_circuit(inner: CircuitData, register_inner: bool = False,
+                 config: CircuitConfig | None = None):
     """The recursive verifier circuit of `inner`'s proofs, a step of the
-    reference's bench_recursion chain (seed 1234 and
-    `standard_recursion_config()`, as `tests/golden_common.py`
-    build_fib100_wrap). Returns (builder, witness): the builder holds the
-    verifier, unbuilt (`build()` or `build_host()`), and `witness(proof)`
-    is the PartialWitness of one wrap prove of `proof`."""
-    config = CircuitConfig.standard_recursion_config()
+    reference's bench_recursion chain (seed 1234 and, unless `config` is
+    given, `standard_recursion_config()`, as `tests/golden_common.py`
+    build_fib100_wrap). With `register_inner`, the wrap's public inputs are
+    the inner proof's public inputs, then the inner verifier data's
+    constants-and-sigmas cap, digest by digest, and its circuit digest, as
+    an aggregation circuit exposes them; without, it has none, as in the
+    reference. Returns (builder, witness): the builder holds the verifier,
+    unbuilt (`build()` or `build_host()`), and `witness(proof)` is the
+    PartialWitness of one wrap prove of `proof`."""
+    config = config or CircuitConfig.standard_recursion_config()
     builder = CircuitBuilder(config, seed=1234)
     pt = targets.add_virtual_proof_with_pis(builder, inner.common)
     vt = targets.add_virtual_verifier_data(builder,
                                            config.fri_config.cap_height)
     verify_proof_circuit(builder, pt, vt, inner.common)
+    if register_inner:
+        builder.register_public_inputs(pt.public_inputs)
+        for digest in vt.constants_sigmas_cap:
+            builder.register_public_inputs(digest)
+        builder.register_public_inputs(vt.circuit_digest)
 
     def witness(proof) -> PartialWitness:
         pw = PartialWitness()

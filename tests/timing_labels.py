@@ -9,6 +9,8 @@ UPLOAD, CHALLENGES, ASSEMBLY = HOST_SPANS
 FRI_INSIDE = (CHALLENGES, "reduce batch of polynomials", "perform final FFT",
               "fold codewords in the commitment phase",
               "find proof-of-work witness", "FRI query rounds")
+# the witness fixpoint's spans (iop/generator.py), once a proof
+FIXPOINT = ("generator index", "generator passes")
 STARK_TOP = ("trace to device", "compute trace commitment", CHALLENGES,
              CHALLENGES, "compute quotient polys",
              "compute quotient commitment", CHALLENGES, "openings",
@@ -51,7 +53,8 @@ def plonk_nested(common, scopes, B: int) -> list:
     """`nested` of a prove_many of B proofs whose round 3 is one pass."""
     gates = [f"gate {g.id()}" for g in common.gates if g.num_constraints()]
     folds = len(common.fri_params.reduction_arity_bits)
-    return ([(scopes[4], ["coset values", "gate constraints",
+    return ([(scopes[0], list(FIXPOINT) * B),
+             (scopes[4], ["coset values", "gate constraints",
                           "permutation terms", "alpha reduction",
                           "quotient iNTT"]),
              ("gate constraints", gates)]
