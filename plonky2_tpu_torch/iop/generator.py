@@ -18,7 +18,7 @@ import numpy as np
 
 from ..field import reference as ref
 from ..utils import timing
-from .witness import PartialWitness, PartitionWitness
+from .witness import PartialWitness, PartitionLayout, PartitionWitness
 
 
 class SimpleGenerator:
@@ -95,7 +95,7 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
     worklist), and two counters, added once at the end: `generator_runs`,
     the calls of a generator's `run`, retries included, and
     `generator_passes`, the passes of the worklist."""
-    witness = PartitionWitness(prover_data.representative_map,
+    witness = PartitionWitness(PartitionLayout.of(prover_data, common),
                                common.config.num_wires, common.degree)
     generators = prover_data.generators
 
@@ -106,11 +106,12 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
             for t in g.watch_list():
                 watchers[witness.rep_index(t)].append(gi)
 
-    newly_set: list[int] = []
     for t, v in inputs.values.items():
-        r = witness.set(t, v)
-        if r is not None:
-            newly_set.append(r)
+        witness.set(t, v)
+    # the representatives set so far, in order; a pass requeues the
+    # watchers of those past `cursor`
+    set_reps = witness.set_reps
+    cursor = 0
 
     remaining = set(range(len(generators)))
     # First pass: try everything once (dependency-free generators fire here).
@@ -129,17 +130,15 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
                 if generators[gi].run(witness, buf):
                     remaining.discard(gi)
                     for t, v in buf:
-                        r = witness.set(t, v)
-                        if r is not None:
-                            newly_set.append(r)
+                        witness.set(t, v)
             # requeue watchers of anything that changed
             seen = set()
-            for r in newly_set:
+            for r in set_reps[cursor:]:
                 for gi in watchers.get(r, ()):
                     if gi in remaining and gi not in seen:
                         seen.add(gi)
                         next_queue.append(gi)
-            newly_set.clear()
+            cursor = len(set_reps)
             queue = next_queue
     timing.count("generator_runs", runs)
     timing.count("generator_passes", passes)

@@ -25,13 +25,14 @@ phases under the JAX package's labels: SERIAL_SCOPES for `prove`,
 enabled tree ends each scope in a synchronize of the prover's device; a
 disabled one adds none. The host work between those phases lies in the
 port's own depth-0 scopes, HOST_SPANS, which end in no synchronize:
-`witness upload` (the public inputs, their hash and the wires' upload),
-`challenges` (each Fiat-Shamir block, and a proof's openings observed and
-its FRI instance) and `proof assembly`. Inside round 3 the scopes are
-`coset values`, `gate constraints` (a `gate <id>` scope for each gate with
-constraints), `permutation terms`, `alpha reduction` and `quotient iNTT`;
-FRI's are in `fri/oracle.py` and `fri/prover.py`. The tree counts the
-call's `proofs`.
+`witness upload` (the public inputs, their hash, and inside it `wire
+matrix`: the wire matrix built from the set representatives, counted in
+`wire_values`, and its upload), `challenges` (each Fiat-Shamir block, and
+a proof's openings observed and its FRI instance) and `proof assembly`.
+Inside round 3 the scopes are `coset values`, `gate constraints` (a `gate
+<id>` scope for each gate with constraints), `permutation terms`, `alpha
+reduction` and `quotient iNTT`; FRI's are in `fri/oracle.py` and
+`fri/prover.py`. The tree counts the call's `proofs`.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..fri.challenges import observe_openings
 from ..fri.oracle import PolynomialBatch, commit_batch
 from ..iop.challenger import Challenger
 from ..iop.generator import generate_partial_witness
+from ..iop.witness import wire_matrix
 from ..ops import ntt
 from ..utils import timing as tracing
 from ..utils.timing import TimingTree
@@ -107,8 +109,8 @@ def prove_many(prover_data, common, inputs_list,
                          for w in witnesses]
         pi_hashes = [common.gc.hash_public_inputs(pis)
                      for pis in public_inputs]
-        wires = gl.from_u64(np.stack([w.full_witness() for w in witnesses],
-                                     axis=1), device)   # [num_wires, B, n]
+        with timing.scope("wire matrix"):
+            wires = _upload_wires(witnesses, device)    # [num_wires, B, n]
         del witnesses       # the fixpoint's tables, freed inside the span
 
     # round 1: wires
@@ -210,6 +212,21 @@ def prove_many(prover_data, common, inputs_list,
                 ),
                 public_inputs=public_inputs[b]))
     return proofs
+
+
+def _upload_wires(witnesses, device) -> torch.Tensor:
+    """The witnesses' wire matrix (`iop/witness.wire_matrix`) on `device`
+    in one blocking copy, without `gl.from_u64`'s canonicalising pass: the
+    witness holds canonical values. For a card the host matrix is pinned
+    memory, which PyTorch's host allocator hands back to the next proof, so
+    no proof pays to fault in fresh pages."""
+    layout = witnesses[0].layout
+    host = torch.empty((layout.num_wires, len(witnesses), layout.degree),
+                       dtype=torch.int64,
+                       pin_memory=torch.device(device).type == "cuda")
+    wire_matrix(witnesses, out=host.numpy().view(np.uint64))
+    tracing.count("host_reads")     # a blocking upload drains the queue
+    return host.to(device)
 
 
 def _per_proof(values: list, device) -> torch.Tensor:

@@ -18,7 +18,8 @@ the witness fixpoint's spans and counters.
   and is refused after one flipped opening and after one changed public
   input.
 - One wrap's fixpoint under an enabled TimingTree opens the two spans and
-  adds the two counters.
+  adds the two counters, whose counts are pinned, and its wire matrix
+  counts every set representative.
 
 Remake the golden files with `PYTHONPATH=. python
 tests/test_bench_wrap_reference.py` (~3 min) whenever the wrap's layout or
@@ -46,6 +47,7 @@ from benchmark.run import _apply  # noqa: E402
 from plonky2_tpu_torch.gates.gate import EXT  # noqa: E402
 from plonky2_tpu_torch.iop.generator import \
     generate_partial_witness  # noqa: E402
+from plonky2_tpu_torch.iop.witness import wire_matrix  # noqa: E402
 from plonky2_tpu_torch.plonk.circuit_builder import \
     CircuitBuilder  # noqa: E402
 from plonky2_tpu_torch.recursion.verifier import wrap_circuit  # noqa: E402
@@ -310,6 +312,26 @@ def test_fixpoint_spans_and_counters():
     with off.scope("run generators"):
         generate_partial_witness(witness(inner), host, host.common)
     assert off.counts == {} and off.spans == []
+
+
+def test_fixpoint_counts_are_pinned():
+    """The small wrap's fixpoint runs its generators as often, in as many
+    passes, as the worklist did when it kept its own list of the newly set
+    representatives (pinned); its wire matrix carries every set
+    representative once."""
+    cfg, leaf, host, witness, _ = small()
+    inner = serialization.deserialize_proof_with_pis(
+        open(SMALL_INNER, "rb").read(), leaf.data.common)
+    tree = TimingTree(enabled=True)
+    with tree.scope("run generators"):
+        full = generate_partial_witness(witness(inner), host, host.common)
+    with tree.scope("wire matrix"):
+        wire_matrix([full])
+    assert tree.counts["generator_runs"] == 12983
+    assert tree.counts["generator_passes"] == 293
+    set_count = sum(v is not None for v in full.values)
+    assert tree.counts["wire_values"] == len(full.set_reps) == set_count
+    assert set_count == 35778
 
 
 def make_golden() -> None:

@@ -11,6 +11,8 @@ FRI_INSIDE = (CHALLENGES, "reduce batch of polynomials", "perform final FFT",
               "find proof-of-work witness", "FRI query rounds")
 # the witness fixpoint's spans (iop/generator.py), once a proof
 FIXPOINT = ("generator index", "generator passes")
+# the wire matrix built and uploaded, inside the witness upload, once a call
+WIRE_MATRIX = "wire matrix"
 STARK_TOP = ("trace to device", "compute trace commitment", CHALLENGES,
              CHALLENGES, "compute quotient polys",
              "compute quotient commitment", CHALLENGES, "openings",
@@ -54,6 +56,7 @@ def plonk_nested(common, scopes, B: int) -> list:
     gates = [f"gate {g.id()}" for g in common.gates if g.num_constraints()]
     folds = len(common.fri_params.reduction_arity_bits)
     return ([(scopes[0], list(FIXPOINT) * B),
+             (UPLOAD, [WIRE_MATRIX]),
              (scopes[4], ["coset values", "gate constraints",
                           "permutation terms", "alpha reduction",
                           "quotient iNTT"]),
