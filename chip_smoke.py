@@ -221,6 +221,12 @@ sys.modules["plonky2_tpu"] = None  # nor the JAX package
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the H100's HBM bandwidth, SMs, IMAD rate a SM and clock, and IMADs a field
+# multiply (at least four 32-bit partial products)
+from benchmark.roofline.peaks import (  # noqa: E402
+    HBM_BYTES_PER_S, IMAD_PER_FIELD_MUL, IMAD_PER_SM_CLOCK, SMS,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -237,11 +243,6 @@ POSEIDON2_PATH = ("ntt", "poseidon2_permute", "poseidon2_merkle_tree",
 HOST_HASH_PATH = ("ntt",) + FIELD_KERNELS
 
 P = (1 << 64) - (1 << 32) + 1      # the Goldilocks prime
-# H100 SXM: HBM bytes/s (NVIDIA data sheet) and the 32-bit integer
-# multiply-add rate of one SM per clock (64 INT32 lanes)
-HBM_BYTES_PER_S = 3.35e12
-SMS = 132
-IMAD_PER_SM_CLK = 64
 # general (full 64-bit) field multiplies per permutation, from the
 # algorithm. Poseidon: the x^7 S-boxes, 4 multiplies each, of 8 full rounds
 # x 12 and 22 partial rounds x 1; its MDS constants are below 2^6 (shifts
@@ -250,9 +251,6 @@ IMAD_PER_SM_CLK = 64
 # full 64-bit internal diagonal
 FIELD_MULS = {"poseidon_permute": (8 * 12 + 22) * 4,
               "poseidon2_permute": (8 * 12 + 22) * 4 + 22 * 12}
-# a 64 x 64 -> 128-bit product takes at least four 32-bit partial products;
-# the Goldilocks reduction takes shifts and adds only
-MIN_IMAD_PER_FIELD_MUL = 4
 # warm proves of each main-path phase, after its cold one (the PLONK
 # phases; starky-fib and starky-recursive take STARK_WARM_PROVES)
 WARM_PROVES = 2
@@ -1755,7 +1753,7 @@ def _max_abs_err(a, b) -> int:
 def _bound(name: str, shape, clock_mhz: float) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes the function moves over
     HBM bandwidth and the 32-bit multiply-adds its field multiplies need
-    (MIN_IMAD_PER_FIELD_MUL each) over the card's IMAD rate at `clock_mhz`.
+    (IMAD_PER_FIELD_MUL each) over the card's IMAD rate at `clock_mhz`.
     Adds, reductions and small-constant products are not counted: a
     floor."""
     if name == "ntt":
@@ -1769,10 +1767,10 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
         nbytes = 8 * (batch * n + batch * N)
         scaled = shift is not None or direction == "inverse"
         muls = batch * (lg_n * (N // 2) + (n if scaled else 0))
-        imads = MIN_IMAD_PER_FIELD_MUL * muls
+        imads = IMAD_PER_FIELD_MUL * muls
     elif name.endswith("_permute"):
         nbytes = 2 * 8 * 12 * shape[0]
-        imads = FIELD_MULS[name] * MIN_IMAD_PER_FIELD_MUL * shape[0]
+        imads = FIELD_MULS[name] * IMAD_PER_FIELD_MUL * shape[0]
     elif name.endswith("_merkle_tree"):
         # n leaf digests in, the n - 2^cap nodes above them out, one
         # compression (permutation) per node
@@ -1780,15 +1778,15 @@ def _bound(name: str, shape, clock_mhz: float) -> tuple:
         nodes = n - (1 << cap_height)
         nbytes = 32 * (n + nodes)
         perm = name.replace("merkle_tree", "permute")
-        imads = FIELD_MULS[perm] * MIN_IMAD_PER_FIELD_MUL * nodes
+        imads = FIELD_MULS[perm] * IMAD_PER_FIELD_MUL * nodes
     else:
         L, n = shape
         perm = name.replace("hash_leaves", "permute")
         nbytes = 8 * (L * n + 4 * n)
-        imads = (FIELD_MULS[perm] * MIN_IMAD_PER_FIELD_MUL * n
+        imads = (FIELD_MULS[perm] * IMAD_PER_FIELD_MUL * n
                  * math.ceil(L / 8))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / (SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6) * 1e3
+    t_ops = imads / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -2061,9 +2059,9 @@ def field(device, clock_mhz):
         limbs = len(pairs)
         nbytes = 8 * (sum(t.numel() for t in xs if t.is_cuda)
                       + limbs * out.numel())
-        imads = MIN_IMAD_PER_FIELD_MUL * muls * out.numel()
+        imads = IMAD_PER_FIELD_MUL * muls * out.numel()
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = imads / (SMS * IMAD_PER_SM_CLK * clock_mhz * 1e6) * 1e3
+        t_ops = imads / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms = _device_ms(lambda: run(*xs), 20)

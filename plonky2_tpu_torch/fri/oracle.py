@@ -102,15 +102,12 @@ class PolynomialBatch:
     def natural_lde(self, step: int) -> torch.Tensor:
         """[num_polys, N / step] LDE values in natural point order."""
         leaves = self.merkle_tree.leaves
-        rev = ntt._perm("rev", leaves.shape[0], leaves.device)
         num = leaves.shape[1] - self.salt_size
-        return leaves.index_select(0, rev[::step])[:, :num].t()
+        return ntt.leaf_order(leaves, 0, step)[:, :num].t()
 
     def get_lde_values(self, index: int, step: int = 1):
         """Host row of LDE values at point index * step, salt dropped."""
-        row = self.merkle_tree.leaves_host()[
-            reverse_bits(index * step, self.lde_bits)]
-        return row[:len(row) - self.salt_size]
+        return self.get_lde_values_batch([index], step)[0]
 
     def get_lde_values_batch(self, indices, step: int = 1):
         """[k, num_polys] host rows for many points, salt dropped."""
@@ -162,9 +159,7 @@ class BatchCommitment:
     def natural_lde(self, step: int) -> torch.Tensor:
         """[num, B, N / step] LDE values in natural point order, salt
         dropped."""
-        N = self.leaves.shape[1]
-        rev = ntt._perm("rev", N, self.leaves.device)
-        rows = self.leaves.index_select(1, rev[::step])
+        rows = ntt.leaf_order(self.leaves, 1, step)
         return rows[..., :self.coeffs.shape[0]].permute(2, 0, 1)
 
     def caps(self) -> list:
@@ -237,11 +232,10 @@ def commit_batch(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
                         axis=1)
         lde = torch.cat([lde, gl.from_u64(salt, device)])
     width = lde.shape[0]
-    rev = ntt._perm("rev", N, device)
-    leaves = lde.permute(1, 2, 0).index_select(1, rev)       # [B, N, width]
+    leaves = ntt.leaf_order(lde.permute(1, 2, 0), 1)          # [B, N, width]
     if hasher.device:
         digests = hasher.hash_or_noop_columns(lde.reshape(width, B * N))
-        digests = digests.view(B, N, -1).index_select(1, rev).reshape(
+        digests = ntt.leaf_order(digests.view(B, N, -1), 1).reshape(
             B * N, -1)
         del lde
         trees = _device_trees(leaves, digests, cap_height, hasher)

@@ -28,9 +28,8 @@ from .proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
 def _brv_leaves(values: GF2, arity: int) -> torch.Tensor:
     """[n] ext values -> bit-reversed, arity-chunked leaves [n/arity,
     2*arity], each element flattened as (c0, c1)."""
-    rev = ntt._perm("rev", values.shape[0], values.c0.device)
-    c0 = values.c0.index_select(0, rev).reshape(-1, arity)
-    c1 = values.c1.index_select(0, rev).reshape(-1, arity)
+    c0 = ntt.leaf_order(values.c0, 0).reshape(-1, arity)
+    c1 = ntt.leaf_order(values.c1, 0).reshape(-1, arity)
     return torch.stack([c0, c1], dim=-1).reshape(c0.shape[0], 2 * arity)
 
 

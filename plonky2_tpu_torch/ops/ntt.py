@@ -62,6 +62,13 @@ def _perm(kind: str, n: int, device) -> torch.Tensor:
     return torch.as_tensor(p, dtype=torch.int64, device=device)
 
 
+def leaf_order(x: torch.Tensor, dim: int, step: int = 1) -> torch.Tensor:
+    """x gathered along `dim` at the bit-reversed indices of its length,
+    every `step`-th of them: natural order to the Merkle leaves' order, and
+    back, and with a step the natural points of a 1/step subsampled LDE."""
+    return x.index_select(dim, _perm("rev", x.shape[dim], x.device)[::step])
+
+
 @lru_cache(maxsize=None)
 def _shift_powers(shift: int, n: int, device) -> torch.Tensor:
     return gl.powers(shift, n, device)
@@ -98,7 +105,7 @@ def forward_plain(coeffs: torch.Tensor, rate_bits: int,
     n = coeffs.shape[-1]
     if shift is not None:
         coeffs = gl.mul(coeffs, _shift_powers(shift, n, coeffs.device))
-    x = coeffs.index_select(-1, _perm("rev", n, coeffs.device))
+    x = leaf_order(coeffs, -1)
     if rate_bits:
         x = x.repeat_interleave(1 << rate_bits, dim=-1)
     return dit_plain(x, rate_bits)

@@ -36,7 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..hash.hashers import POSEIDON
 from ..ops import ntt
-from ..utils.bits import log2_strict, reverse_index_bits_perm
+from ..utils.bits import log2_strict
 from .ntt_sharded import lde_batch_local
 
 
@@ -111,18 +111,15 @@ def _tree_from_blocks(lde: torch.Tensor, mesh: DeviceMesh, num: int,
     if M % d:
         raise ValueError(f"{M} points a rank cannot split {d} ways")
     lg_d = log2_strict(d)
-    rev_d = torch.as_tensor(reverse_index_bits_perm(d), dtype=torch.int64,
-                            device=lde.device)
     got = torch.empty((d, b, M // d), dtype=torch.int64, device=lde.device)
-    dist.all_to_all_single(got, lde.reshape(b, M // d, d).permute(2, 0, 1)
-                           .index_select(0, rev_d).contiguous())
+    dist.all_to_all_single(got, ntt.leaf_order(
+        lde.reshape(b, M // d, d).permute(2, 0, 1), 0).contiguous())
     # block c S + s: polynomials of column rank c, points of sequence rank s
     cols = got.view(c, s, b, M // d).permute(0, 2, 1, 3).reshape(
         c * b, N // d)[:num]                      # [num, N / D], k = i / D
     del got
-    rev = ntt._perm("rev", N // d, lde.device)
-    digests = hasher.hash_or_noop_columns(cols).index_select(0, rev)
-    leaves = cols.t().index_select(0, rev)         # [N / D, num], leaf order
+    digests = ntt.leaf_order(hasher.hash_or_noop_columns(cols), 0)
+    leaves = ntt.leaf_order(cols.t(), 0)           # [N / D, num], leaf order
     del cols
     lg_local = log2_strict(N // d)
     local_cap = max(cap_height - lg_d, 0)

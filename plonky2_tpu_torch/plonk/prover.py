@@ -42,13 +42,13 @@ import torch
 
 from ..field import goldilocks as gl
 from ..field import reference as ref
-from ..field.extension import gf2_powers
 from ..fri.challenges import observe_openings
 from ..fri.oracle import PolynomialBatch, commit_batch
 from ..iop.challenger import Challenger
 from ..iop.generator import generate_partial_witness
 from ..iop.witness import wire_matrix
 from ..ops import ntt
+from ..ops.polynomial import eval_at_points, quotient_chunks, quotient_coset
 from ..utils import timing as tracing
 from ..utils.timing import TimingTree
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
@@ -172,10 +172,10 @@ def prove_many(prover_data, common, inputs_list,
     cs = prover_data.constants_sigmas_commitment
     with scope(6):
         cs_e, w_e, zp_e, q_e = (
-            _eval_at_points(p, zetas)
+            eval_at_points(p, zetas)
             for p in (cs.polynomials, wires_commitment.coeffs,
                       zs_pp_commitment.coeffs, quotient_commitment.coeffs))
-        zp_next = _eval_at_points(zs_pp_commitment.coeffs, zeta_nexts)
+        zp_next = eval_at_points(zs_pp_commitment.coeffs, zeta_nexts)
 
     proofs = []
     for b, challenger in enumerate(challengers):
@@ -236,37 +236,11 @@ def _per_proof(values: list, device) -> torch.Tensor:
                        device).unsqueeze(1)
 
 
-# elements of the coefficient block `_eval_at` multiplies at once: wider
-# blocks (a STARK trace of 128 columns over 2^20 rows) go in runs of rows
-EVAL_CHUNK = 1 << 24
-
-
-def _eval_at(coeffs: torch.Tensor, z) -> list:
-    """Every row of coeffs [num, n] evaluated at the extension point z."""
-    return _eval_at_points(coeffs, [z])[0]
-
-
-def _eval_at_points(coeffs: torch.Tensor, zs: list) -> list:
-    """Rows of coeffs [num, n] (shared by the proofs) or [num, B, n] (a
-    row a proof) evaluated at zs, an extension point a proof: B lists of
-    num (c0, c1) pairs."""
-    n = coeffs.shape[-1]
-    B = len(zs)
-    powers = [gf2_powers(z, n, coeffs.device) for z in zs]
-    zp0 = torch.stack([p.c0 for p in powers])             # [B, n]
-    zp1 = torch.stack([p.c1 for p in powers])
-    if coeffs.dim() == 2:
-        coeffs = coeffs.unsqueeze(1)
-    rows = max(1, EVAL_CHUNK // (n * B))
-    c0, c1 = [], []
-    for lo in range(0, coeffs.shape[0], rows):
-        c = coeffs[lo:lo + rows]
-        c0.append(gl.reduce_sum(gl.mul(c, zp0), -1))      # [rows, B]
-        c1.append(gl.reduce_sum(gl.mul(c, zp1), -1))
-    c0 = gl.to_u64(torch.cat(c0))
-    c1 = gl.to_u64(torch.cat(c1))
-    return [[(int(a), int(b)) for a, b in zip(c0[:, j], c1[:, j])]
-            for j in range(B)]
+def _permutation_factors(routed, s_id, sigmas, beta, gamma):
+    """The permutation argument's numerators routed + beta k x + gamma and
+    denominators routed + beta sigma + gamma, [nr, B, m] at m points x."""
+    return (gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma),
+            gl.add(gl.add(routed, gl.mul(sigmas, beta)), gamma))
 
 
 def _chunk_products(rows: torch.Tensor, size: int) -> torch.Tensor:
@@ -285,13 +259,12 @@ def _partial_products(common, wires, sigmas, subgroup, beta, gamma):
     """Z (exclusive running product of the row quotients) [B, n] and the
     partial products of each chunk, [num_partial_products, B, n], of wires
     [num_wires, B, n] under each proof's beta and gamma [B, 1]."""
-    nr = common.config.num_routed_wires
-    routed = wires[:nr]
     k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
                     wires.device).unsqueeze(1)
     s_id = gl.mul(k, subgroup).unsqueeze(1)               # [nr, 1, n]
-    numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
-    denom = gl.add(gl.add(routed, gl.mul(sigmas.unsqueeze(1), beta)), gamma)
+    numer, denom = _permutation_factors(
+        wires[:common.config.num_routed_wires], s_id, sigmas.unsqueeze(1),
+        beta, gamma)
     cp = _chunk_products(gl.mul(numer, gl.inverse(denom)),
                          common.quotient_degree_factor)
     row_prod = cp[0]
@@ -323,11 +296,8 @@ def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
     rate_bits = common.config.fri_config.rate_bits
     assert qdb <= rate_bits, "constraint degree above rate unsupported"
     step = 1 << (rate_bits - qdb)
-    degree = common.degree
-    N = degree << qdb
-    nc = common.config.num_challenges
+    N = common.degree << qdb
     B = len(pi_hashes)
-    g_shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
 
     device = wires_commitment.coeffs.device
     with tracing.scope("coset values", device):
@@ -335,23 +305,11 @@ def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
         wires_lde = wires_commitment.natural_lde(step)      # [W, B, N]
         zs_pp_lde = zs_pp_commitment.natural_lde(step)
 
-        # coset points x, Z_H(x)^-1 (period 2^qdb) and L_0(x)
-        x = gl.mul_const(gl.powers(ref.primitive_root_of_unity(
-            common.degree_bits + qdb), N, device), g_shift)
-        g_pow_n = ref.exp(g_shift, degree)
-        v = ref.primitive_root_of_unity(qdb)
-        zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
-              for i in range(1 << qdb)]
-        zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
-                           device).repeat(N >> qdb)
-        zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
-                                        dtype=np.uint64),
-                             device).repeat(N >> qdb)
-        l_0_x = gl.mul(zh_t, gl.inverse(gl.mul_const(
-            gl.sub(x, gl.const(1, device)), degree % ref.ORDER)))
+        x, zh_inv, (l_0_x,) = quotient_coset(common.degree_bits, qdb, (1,),
+                                             device)
         k = gl.from_u64(np.asarray(common.k_is, dtype=np.uint64),
                         device).unsqueeze(1)
-        consts = (x, zh_inv, l_0_x, gl.mul(k, x).unsqueeze(1))
+        consts = (zh_inv, l_0_x, gl.mul(k, x).unsqueeze(1))
 
     per = max(1, ROUND3_POINTS // N)
     values = torch.cat([
@@ -360,17 +318,14 @@ def compute_quotient_polys(common, prover_data, pi_hashes, wires_commitment,
                          betas[lo:lo + per], gammas[lo:lo + per],
                          alphas[lo:lo + per])
         for lo in range(0, B, per)], dim=1)                 # [nc, B, N]
-    with tracing.scope("quotient iNTT", device):
-        coeffs = ntt.coset_ifft(values, shift=g_shift)[..., :qdf * degree]
-        return coeffs.reshape(nc, B, qdf, degree).permute(
-            0, 2, 1, 3).reshape(nc * qdf, B, degree).contiguous()
+    return quotient_chunks(values, qdf, common.degree)
 
 
 def _quotient_values(common, consts, cs_lde, wires_lde, zs_pp_lde, pi_hashes,
                      betas, gammas, alphas) -> torch.Tensor:
     """The vanishing values over the grid divided by Z_H, [nc, B, N], of
     the B proofs of wires_lde [W, B, N] and zs_pp_lde [Z, B, N]."""
-    x, zh_inv, l_0_x, s_id = consts
+    zh_inv, l_0_x, s_id = consts
     qdb = (common.quotient_degree_factor - 1).bit_length()
     next_step = 1 << qdb
     nc = common.config.num_challenges
@@ -405,8 +360,8 @@ def _quotient_values(common, consts, cs_lde, wires_lde, zs_pp_lde, pi_hashes,
             gamma = _per_proof([g[i] for g in gammas], device)
             z_x, z_gx = zs_pp_lde[i], next_zs_pp[i]
             z1_terms.append(gl.mul(l_0_x, gl.sub(z_x, one)))
-            numer = gl.add(gl.add(routed, gl.mul(s_id, beta)), gamma)
-            denom = gl.add(gl.add(routed, gl.mul(sigmas_rows, beta)), gamma)
+            numer, denom = _permutation_factors(routed, s_id, sigmas_rows,
+                                                beta, gamma)
             nprod = _chunk_products(numer, qdf)
             dprod = _chunk_products(denom, qdf)
             pps = zs_pp_lde[pp_lo + i * num_prods:pp_lo + (i + 1) * num_prods]

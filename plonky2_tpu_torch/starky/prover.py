@@ -31,8 +31,8 @@ from ..fri.oracle import PolynomialBatch
 from ..gates.gate import GFAlgebra
 from ..hash.hashers import PoseidonGoldilocksConfig
 from ..iop.challenger import Challenger
-from ..ops import ntt
-from ..plonk.prover import HOST_SPANS, _eval_at
+from ..ops.polynomial import eval_at_points, quotient_chunks, quotient_coset
+from ..plonk.prover import HOST_SPANS
 from ..utils import timing as tracing
 from ..utils.bits import log2_strict
 from ..utils.timing import TimingTree
@@ -174,14 +174,17 @@ def prove(stark: Stark, config: StarkConfig, trace,
         if requires_ctl:
             zs = aux_commitment.polynomials[
                 num_lookup_columns + num_ctl_helpers:]
-            ctl_zs_first = [v[0] for v in _eval_at(zs, (1, 0))]
+            ctl_zs_first = [v[0] for v in eval_at_points(zs, [(1, 0)])[0]]
+        trace_p = trace_commitment.polynomials
         aux = aux_commitment.polynomials if aux_commitment else None
         openings = StarkOpeningSet(
-            local_values=_eval_at(trace_commitment.polynomials, zeta),
-            next_values=_eval_at(trace_commitment.polynomials, zeta_next),
-            quotient_polys=_eval_at(quotient_commitment.polynomials, zeta),
-            auxiliary_polys=_eval_at(aux, zeta) if aux is not None else None,
-            auxiliary_polys_next=(_eval_at(aux, zeta_next)
+            local_values=eval_at_points(trace_p, [zeta])[0],
+            next_values=eval_at_points(trace_p, [zeta_next])[0],
+            quotient_polys=eval_at_points(quotient_commitment.polynomials,
+                                          [zeta])[0],
+            auxiliary_polys=(eval_at_points(aux, [zeta])[0]
+                             if aux is not None else None),
+            auxiliary_polys_next=(eval_at_points(aux, [zeta_next])[0]
                                   if aux is not None else None),
             ctl_zs_first=ctl_zs_first,
         )
@@ -261,38 +264,17 @@ def compute_quotient_polys(stark, config, trace_commitment, aux_commitment,
     assert qdb <= rate_bits
     step = 1 << (rate_bits - qdb)
     next_step = 1 << qdb
-    degree = 1 << degree_bits
-    N = degree << qdb
-    nc = config.num_challenges
-    g_shift = ref.MULTIPLICATIVE_GROUP_GENERATOR
-    w = ref.primitive_root_of_unity(degree_bits + qdb)
-    g = ref.primitive_root_of_unity(degree_bits)
-    last = ref.inverse(g)       # g^{n-1}
+    N = 1 << (degree_bits + qdb)
+    last = ref.inverse(ref.primitive_root_of_unity(degree_bits))  # g^{n-1}
 
     device = trace_commitment.polynomials.device
     with tracing.scope("coset values", device):
         trace_lde = trace_commitment.natural_lde(step)   # [cols, N]
 
-        # Z_H (period 2^qdb), Lagrange first/last and x - g^{n-1} on the
-        # coset
-        g_pow_n = ref.exp(g_shift, degree)
-        v = ref.primitive_root_of_unity(qdb) if qdb else 1
-        zh = [ref.sub(ref.mul(g_pow_n, ref.exp(v, i)), 1)
-              for i in range(next_step)]
-        zh_t = gl.from_u64(np.asarray(zh, dtype=np.uint64),
-                           device).repeat(N // next_step)
-        zh_inv = gl.from_u64(np.asarray([ref.inverse(t) for t in zh],
-                                        dtype=np.uint64),
-                             device).repeat(N // next_step)
-        x = gl.mul_const(gl.powers(w, N, device), g_shift)
-        one = gl.const(1, device)
-        # L_0(x) = Z_H(x)/(n(x-1)); L_last(x) = Z_H(x)/(n(g x - 1))
-        inv = gl.inverse(gl.mul_const(torch.stack(
-            [gl.sub(x, one), gl.sub(gl.mul_const(x, g), one)]), degree))
-        l_first = gl.mul(zh_t, inv[0])
-        l_last = gl.mul(zh_t, inv[1])
+        x, zh_inv, (l_first, l_last) = quotient_coset(
+            degree_bits, qdb, (1, last), device)
         z_last = gl.sub(x, gl.const(last, device))
-        del inv, x
+        del x
 
     with tracing.scope("evaluate constraints", device):
         alg = GFAlgebra((N,), device)
@@ -327,6 +309,4 @@ def compute_quotient_polys(stark, config, trace_commitment, aux_commitment,
         quotient_values = torch.stack([gl.mul(acc, zh_inv)
                                        for acc in consumer.accs])  # [nc, N]
 
-    with tracing.scope("quotient iNTT", device):
-        coeffs = ntt.coset_ifft(quotient_values, shift=g_shift)
-        return coeffs[:, :qdf * degree].reshape(nc * qdf, degree)
+    return quotient_chunks(quotient_values, qdf, 1 << degree_bits)

@@ -83,6 +83,57 @@ def test_horner_fold_and_eval():
         _pairs(jpoly.eval_poly_ext(theirs, JGF2.const(*Z)))
 
 
+def _horner(row, z) -> tuple:
+    """sum_i row[i] z^i at the extension point z, by Horner on the host."""
+    acc = (0, 0)
+    for c in reversed(row):
+        acc = ref.ext2_add(ref.ext2_mul(acc, z), (int(c), 0))
+    return acc
+
+
+@pytest.mark.parametrize("rows_per_point", [False, True])
+@pytest.mark.parametrize("chunk", [None, 1, 96])
+def test_eval_at_points_vs_host_horner(monkeypatch, rows_per_point, chunk):
+    """The openings' evaluator against Horner at each of B points: rows
+    [num, n] shared by the points or [num, B, n] a row a point; EVAL_CHUNK
+    forced below the input takes the rows one (chunk 1) or two (chunk 96 =
+    2 n B, the last block ragged) at a time."""
+    num, B, n = 5, 3, 16
+    if chunk is not None:
+        monkeypatch.setattr(poly, "EVAL_CHUNK", chunk)
+    zs = [tuple(int(v) for v in _rand(2)) for _ in range(B)]
+    coeffs = _rand(num, B, n) if rows_per_point else _rand(num, n)
+    got = poly.eval_at_points(gl.from_u64(coeffs, "cpu"), zs)
+    assert got == [
+        [_horner(coeffs[r, b] if rows_per_point else coeffs[r], z)
+         for r in range(num)] for b, z in enumerate(zs)]
+
+
+@pytest.mark.parametrize("qdb", range(4))
+def test_quotient_coset_vs_host_formulas(qdb):
+    """The quotient coset of a degree-2^4 quotient, 2^qdb points a row, on
+    the host: x_i = g w^i, 1 / (x^n - 1), and the Lagrange selectors
+    a (x^n - 1) / (n (x - a)) of the first point a = 1 and the last
+    a = g_H^(n-1)."""
+    degree_bits = 4
+    n = 1 << degree_bits
+    last = ref.inverse(ref.primitive_root_of_unity(degree_bits))
+    x, zh_inv, sel = poly.quotient_coset(degree_bits, qdb, (1, last), "cpu")
+    w = ref.primitive_root_of_unity(degree_bits + qdb)
+    xs = [ref.mul(ref.MULTIPLICATIVE_GROUP_GENERATOR, ref.exp(w, i))
+          for i in range(n << qdb)]
+    zh = [ref.sub(ref.exp(v, n), 1) for v in xs]
+
+    def lagrange(a):
+        return [ref.mul(ref.mul(a, z), ref.inverse(ref.mul(n, ref.sub(v, a))))
+                for v, z in zip(xs, zh)]
+
+    assert gl.to_ints(x) == xs
+    assert gl.to_ints(zh_inv) == [ref.inverse(z) for z in zh]
+    assert gl.to_ints(sel[0]) == lagrange(1)
+    assert gl.to_ints(sel[1]) == lagrange(last)
+
+
 def test_fold_layer_and_leaves_vs_jax():
     ours, theirs = _ext(1 << 8)
     shift = ref.exp(ref.MULTIPLICATIVE_GROUP_GENERATOR, 16)

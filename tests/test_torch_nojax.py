@@ -7,9 +7,8 @@ module of JAX or of the JAX package was loaded. An AST scan checks that
 no module of the port, chip_smoke.py, the gadget, STARK and service
 circuits it proves (tests/gadget_circuits.py, tests/stark_circuits.py,
 tests/service_circuits.py, the mesh worker tests/torch_parallel_worker.py),
-the port's kernel probe (scripts/torch_poseidon_probe.py), its wrap
-profile (scripts/torch_wrap_profile.py) or its examples
-(plonky2_tpu_torch/examples/) imports either, and a 2-rank gloo
+the port's kernel probe (scripts/torch_poseidon_probe.py) or its
+examples (plonky2_tpu_torch/examples/) imports either, and a 2-rank gloo
 commit of the port's `parallel/` runs with both blocked. This is what
 lets chip_smoke.py run on a machine with no JAX."""
 
@@ -181,8 +180,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
              os.path.join(ROOT, "tests", "stark_circuits.py"),
              os.path.join(ROOT, "tests", "service_circuits.py"),
              os.path.join(ROOT, "tests", "torch_parallel_worker.py"),
-             os.path.join(ROOT, "scripts", "torch_poseidon_probe.py"),
-             os.path.join(ROOT, "scripts", "torch_wrap_profile.py")]
+             os.path.join(ROOT, "scripts", "torch_poseidon_probe.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "plonky2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30

@@ -20,6 +20,7 @@ from plonky2_tpu.ops import ntt as jntt
 from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.field.extension import GF2
 from plonky2_tpu_torch.ops import ntt
+from plonky2_tpu_torch.utils.bits import log2_strict, reverse_bits
 
 RNG = np.random.default_rng(5)
 G = ref.MULTIPLICATIVE_GROUP_GENERATOR
@@ -389,6 +390,20 @@ def test_schedule_model_stacked_ext_vs_jax(name, lg_n):
                                  gl.from_u64(x1, "cpu")), *args[name])
     np.testing.assert_array_equal(
         np.stack([gl.to_u64(got.c0), gl.to_u64(got.c1)]), _jax_pair(want))
+
+
+@pytest.mark.parametrize("dim,step", [(0, 1), (1, 1), (1, 4), (-1, 2)])
+def test_leaf_order(dim, step):
+    """Element i along `dim` is the one at the bit-reversal of i step; with
+    step 1 the gather is its own inverse."""
+    x = torch.arange(8 * 16 * 4).reshape(8, 16, 4)
+    n = x.shape[dim]
+    got = ntt.leaf_order(x, dim, step)
+    want = x.index_select(dim, torch.as_tensor(
+        [reverse_bits(i * step, log2_strict(n)) for i in range(n // step)]))
+    assert torch.equal(got, want)
+    if step == 1:
+        assert torch.equal(ntt.leaf_order(got, dim), x)
 
 
 def test_stage_twiddles_and_inverse_scale():
