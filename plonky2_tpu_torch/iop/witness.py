@@ -111,16 +111,21 @@ class PartitionWitness:
     def set(self, t, value: int) -> int | None:
         """Returns the representative index if newly set, else None
         (reference: witness.rs set_target_returning_rep:320)."""
-        value %= ref.ORDER
         idx = self.rep_index(t)
+        return idx if self.set_rep(idx, t, value) else None
+
+    def set_rep(self, idx: int, t, value: int) -> bool:
+        """`set` of target `t` whose representative `idx` the caller has;
+        True if newly set."""
+        value %= ref.ORDER
         prev = self.values[idx]
         if prev is not None:
             assert prev == value, \
                 f"Partition containing {t} was set twice with different values: {prev} != {value}"
-            return None
+            return False
         self.values[idx] = value
         self.set_reps.append(idx)
-        return idx
+        return True
 
     def full_witness(self) -> np.ndarray:
         """uint64 [num_wires, degree] wire matrix; unset wires are zero

@@ -307,7 +307,8 @@ def test_fixpoint_spans_and_counters():
         tree.counts["generator_runs"]
     assert tree.span_counts["run generators"] == {
         "generator_runs": tree.counts["generator_runs"],
-        "generator_passes": tree.counts["generator_passes"]}
+        "generator_passes": tree.counts["generator_passes"],
+        "generator_replays": tree.counts["generator_replays"]}
     off = TimingTree(enabled=False)
     with off.scope("run generators"):
         generate_partial_witness(witness(inner), host, host.common)
@@ -315,23 +316,28 @@ def test_fixpoint_spans_and_counters():
 
 
 def test_fixpoint_counts_are_pinned():
-    """The small wrap's fixpoint runs its generators as often, in as many
-    passes, as the worklist did when it kept its own list of the newly set
-    representatives (pinned); its wire matrix carries every set
-    representative once."""
+    """The small wrap's fixpoint, recording, runs its generators as often,
+    in as many passes, as the worklist did when it kept its own list of the
+    newly set representatives (pinned); replaying, once each in one pass;
+    its wire matrix carries every set representative once."""
     cfg, leaf, host, witness, _ = small()
     inner = serialization.deserialize_proof_with_pis(
         open(SMALL_INNER, "rb").read(), leaf.data.common)
-    tree = TimingTree(enabled=True)
-    with tree.scope("run generators"):
-        full = generate_partial_witness(witness(inner), host, host.common)
-    with tree.scope("wire matrix"):
-        wire_matrix([full])
-    assert tree.counts["generator_runs"] == 12983
-    assert tree.counts["generator_passes"] == 293
-    set_count = sum(v is not None for v in full.values)
-    assert tree.counts["wire_values"] == len(full.set_reps) == set_count
-    assert set_count == 35778
+    host._witness_plan = None           # the circuit's next proof records
+    for runs, passes, replays in ((12983, 293, 0), (6890, 1, 1)):
+        tree = TimingTree(enabled=True)
+        with tree.scope("run generators"):
+            full = generate_partial_witness(witness(inner), host,
+                                            host.common)
+        with tree.scope("wire matrix"):
+            wire_matrix([full])
+        assert tree.counts["generator_runs"] == runs
+        assert tree.counts["generator_passes"] == passes
+        assert tree.counts["generator_replays"] == replays
+        set_count = sum(v is not None for v in full.values)
+        assert tree.counts["wire_values"] == len(full.set_reps) == set_count
+        assert set_count == 35778
+    assert len(host.generators) == 6890
 
 
 def make_golden() -> None:

@@ -304,14 +304,23 @@ def _chains():
     if "chains" in _CACHE:
         return _CACHE["chains"]
     goal, jgoal = _goals()
+    host, inputs = port_chain(goal)
+    jb = JBuilder(jgoal.config, seed=SEED)
+    _chain(jb, jtargets, jcyclic, jgoal)
+    jdata = jb.build()
+    _CACHE["chains"] = host, jdata, inputs
+    return _CACHE["chains"]
+
+
+def port_chain(goal):
+    """(port host, inputs(cond)): the hash chain laid out by the port on
+    `goal` (`cyclic.common_data_for_recursion(_reduced_config(),
+    GOAL_DEGREE_BITS)`), and the (target, value) pairs of a step with
+    condition `cond`."""
     builder = CircuitBuilder(goal.config, seed=SEED)
     condition, vd, inner, other, other_vd = _chain(builder, targets, cyclic,
                                                    goal)
     host = builder.build_host()
-    jb = JBuilder(jgoal.config, seed=SEED)
-    _chain(jb, jtargets, jcyclic, jgoal)
-    jdata = jb.build()
-
     proof, proof_vd = _fixture(goal)
     rng = np.random.default_rng(5)
     # the verifier data written into the circuit: the fixture's own where
@@ -351,8 +360,7 @@ def _chains():
         targets.set_verifier_data_target(rec, vd, own)
         return rec.pairs
 
-    _CACHE["chains"] = host, jdata, inputs
-    return _CACHE["chains"]
+    return host, inputs
 
 
 def test_common_data_for_recursion_matches_jax():
