@@ -35,7 +35,12 @@ reference's semantics, not a fallback: the mesh never changes a proof.
 `prove_openings` scopes its phases on the thread's active TimingTree
 (`utils/timing.scope`): the alpha draw (`challenges`), `reduce batch of
 polynomials` (the alpha reduction and division of every opened batch) and
-`perform final FFT` (the final polynomial's LDE), then `fri_proof`'s.
+`perform final FFT` (the final polynomial's LDE), then `fri_proof`'s. A
+commit's trees under a device hasher are built in the span `merkle trees`
+(the leaf hash, the digests' leaf order and the layers), which adds the B
+trees to the counter `merkle_trees`; a host hasher's trees open it in
+`MerkleTree`, and the mesh commit's, its leaf exchange included, in
+`sharding._tree_from_blocks`.
 """
 
 from __future__ import annotations
@@ -234,11 +239,13 @@ def commit_batch(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
     width = lde.shape[0]
     leaves = ntt.leaf_order(lde.permute(1, 2, 0), 1)          # [B, N, width]
     if hasher.device:
-        digests = hasher.hash_or_noop_columns(lde.reshape(width, B * N))
-        digests = ntt.leaf_order(digests.view(B, N, -1), 1).reshape(
-            B * N, -1)
-        del lde
-        trees = _device_trees(leaves, digests, cap_height, hasher)
+        with tracing.scope("merkle trees", device):
+            digests = hasher.hash_or_noop_columns(lde.reshape(width, B * N))
+            digests = ntt.leaf_order(digests.view(B, N, -1), 1).reshape(
+                B * N, -1)
+            del lde
+            trees = _device_trees(leaves, digests, cap_height, hasher)
+            tracing.count("merkle_trees", B)
     else:
         del lde
         trees = [MerkleTree(leaves[b], cap_height, hasher) for b in range(B)]

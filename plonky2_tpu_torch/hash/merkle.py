@@ -53,7 +53,9 @@ def build_host_layers(leaves: np.ndarray, cap_height: int, hasher) -> list:
 class MerkleTree:
     """leaves: int64 [N, leaf_size], hashed by `hasher`. `layers` gives a
     whole prebuilt tree (tensors for a device hasher, numpy arrays for a
-    host hasher), as a commit builds from the LDE columns."""
+    host hasher), as a commit builds from the LDE columns; without it the
+    tree is built here, in the span `merkle trees` of the thread's active
+    TimingTree, and counted in its counter `merkle_trees`."""
 
     def __init__(self, leaves: torch.Tensor, cap_height: int, hasher,
                  layers: list | None = None):
@@ -64,12 +66,14 @@ class MerkleTree:
         self.hasher = hasher
         self._leaves_host = None
         if layers is None:
-            if not hasher.device:
-                layers = build_host_layers(self.leaves_host(), cap_height,
-                                           hasher)
-            else:
-                layers = build_layers(hasher.hash_or_noop(leaves),
-                                      cap_height, hasher)
+            with tracing.scope("merkle trees", leaves.device):
+                if not hasher.device:
+                    layers = build_host_layers(self.leaves_host(),
+                                               cap_height, hasher)
+                else:
+                    layers = build_layers(hasher.hash_or_noop(leaves),
+                                          cap_height, hasher)
+                tracing.count("merkle_trees")
         self.layers = layers
 
     @property

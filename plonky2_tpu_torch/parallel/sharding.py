@@ -36,6 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..hash.hashers import POSEIDON
 from ..ops import ntt
+from ..utils import timing as tracing
 from ..utils.bits import log2_strict
 from .ntt_sharded import lde_batch_local
 
@@ -97,7 +98,9 @@ def _tree_from_blocks(lde: torch.Tensor, mesh: DeviceMesh, num: int,
     """Steps 2-4 from lde [b, N / S], this rank's block: points
     [s N / S, (s + 1) N / S) of polynomials [c b, (c + 1) b) on a mesh
     (C, S) (S = 1 for a 1-D mesh). Returns (leaves [N, num], layers), the
-    same on every rank."""
+    same on every rank; built in the span `merkle trees` of the thread's
+    active TimingTree and counted in its counter `merkle_trees`, as a
+    single-device commit's tree."""
     if not hasher.device:
         raise ValueError(f"a sharded commit hashes on the device; "
                          f"{hasher.name} hashes on the host")
@@ -111,29 +114,34 @@ def _tree_from_blocks(lde: torch.Tensor, mesh: DeviceMesh, num: int,
     if M % d:
         raise ValueError(f"{M} points a rank cannot split {d} ways")
     lg_d = log2_strict(d)
-    got = torch.empty((d, b, M // d), dtype=torch.int64, device=lde.device)
-    dist.all_to_all_single(got, ntt.leaf_order(
-        lde.reshape(b, M // d, d).permute(2, 0, 1), 0).contiguous())
-    # block c S + s: polynomials of column rank c, points of sequence rank s
-    cols = got.view(c, s, b, M // d).permute(0, 2, 1, 3).reshape(
-        c * b, N // d)[:num]                      # [num, N / D], k = i / D
-    del got
-    digests = ntt.leaf_order(hasher.hash_or_noop_columns(cols), 0)
-    leaves = ntt.leaf_order(cols.t(), 0)           # [N / D, num], leaf order
-    del cols
-    lg_local = log2_strict(N // d)
-    local_cap = max(cap_height - lg_d, 0)
-    local = [digests] + (hasher.merkle_layers(digests, local_cap)
-                         if local_cap < lg_local else [])
-    sizes = [t.shape[0] for t in local]
-    flat = _all_gather(torch.cat(local))           # [D, sum(sizes), 4]
-    layers, off = [], 0
-    for size in sizes:
-        layers.append(flat[:, off:off + size].reshape(d * size, -1))
-        off += size
-    if cap_height < lg_d:
-        layers += hasher.merkle_layers(layers[-1], cap_height)
-    return _all_gather(leaves).view(N, num), layers
+    with tracing.scope("merkle trees", lde.device):
+        got = torch.empty((d, b, M // d), dtype=torch.int64,
+                          device=lde.device)
+        dist.all_to_all_single(got, ntt.leaf_order(
+            lde.reshape(b, M // d, d).permute(2, 0, 1), 0).contiguous())
+        # block c S + s: polynomials of column rank c, points of sequence
+        # rank s
+        cols = got.view(c, s, b, M // d).permute(0, 2, 1, 3).reshape(
+            c * b, N // d)[:num]                  # [num, N / D], k = i / D
+        del got
+        digests = ntt.leaf_order(hasher.hash_or_noop_columns(cols), 0)
+        leaves = ntt.leaf_order(cols.t(), 0)       # [N / D, num], leaf order
+        del cols
+        lg_local = log2_strict(N // d)
+        local_cap = max(cap_height - lg_d, 0)
+        local = [digests] + (hasher.merkle_layers(digests, local_cap)
+                             if local_cap < lg_local else [])
+        sizes = [t.shape[0] for t in local]
+        flat = _all_gather(torch.cat(local))       # [D, sum(sizes), 4]
+        layers, off = [], 0
+        for size in sizes:
+            layers.append(flat[:, off:off + size].reshape(d * size, -1))
+            off += size
+        if cap_height < lg_d:
+            layers += hasher.merkle_layers(layers[-1], cap_height)
+        leaves = _all_gather(leaves).view(N, num)
+        tracing.count("merkle_trees")
+    return leaves, layers
 
 
 def _padded_block(x: torch.Tensor, c: int, b: int) -> torch.Tensor:

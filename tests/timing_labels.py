@@ -13,6 +13,9 @@ FRI_INSIDE = (CHALLENGES, "reduce batch of polynomials", "perform final FFT",
 FIXPOINT = ("generator index", "generator passes")
 # the wire matrix built and uploaded, inside the witness upload, once a call
 WIRE_MATRIX = "wire matrix"
+# a commit's Merkle trees (fri/oracle.py, hash/merkle.py), inside each
+# commitment scope and before each FRI fold's cap
+MERKLE = "merkle trees"
 STARK_TOP = ("trace to device", "compute trace commitment", CHALLENGES,
              CHALLENGES, "compute quotient polys",
              "compute quotient commitment", CHALLENGES, "openings",
@@ -48,7 +51,7 @@ def plonk_top(scopes, B: int) -> list:
 
 def _fri(label: str, folds: int) -> list:
     return [(label, list(FRI_INSIDE))] + (
-        [(FRI_INSIDE[3], [CHALLENGES] * folds)] if folds else [])
+        [(FRI_INSIDE[3], [MERKLE, CHALLENGES] * folds)] if folds else [])
 
 
 def plonk_nested(common, scopes, B: int) -> list:
@@ -57,19 +60,24 @@ def plonk_nested(common, scopes, B: int) -> list:
     folds = len(common.fri_params.reduction_arity_bits)
     return ([(scopes[0], list(FIXPOINT) * B),
              (UPLOAD, [WIRE_MATRIX]),
+             (scopes[1], [MERKLE]),
+             (scopes[3], [MERKLE]),
              (scopes[4], ["coset values", "gate constraints",
                           "permutation terms", "alpha reduction",
                           "quotient iNTT"]),
-             ("gate constraints", gates)]
+             ("gate constraints", gates),
+             (scopes[5], [MERKLE])]
             + [item for b in range(B)
                for item in _fri(scopes[7].format(b=b), folds)])
 
 
 def stark_nested(fri_params) -> list:
     """`nested` of a STARK prove without lookups."""
-    return ([("compute quotient polys", ["coset values",
+    return ([("compute trace commitment", [MERKLE]),
+             ("compute quotient polys", ["coset values",
                                          "evaluate constraints",
-                                         "quotient iNTT"])]
+                                         "quotient iNTT"]),
+             ("compute quotient commitment", [MERKLE])]
             + _fri("FRI opening proof", len(fri_params.reduction_arity_bits)))
 
 
