@@ -13,45 +13,13 @@
 #include <stdint.h>
 #include <stddef.h>
 
+#include "host_goldilocks.h"
 #include "poseidon_constants_gen.h"
 
-typedef unsigned __int128 u128;
-typedef uint64_t u64;
-
-#define ORDER 0xFFFFFFFF00000001ULL
-#define EPSILON 0xFFFFFFFFULL
 #define WIDTH 12
 #define N_ROUNDS 30
 #define HALF_FULL 4
 #define P2_ROUNDS_P 22
-
-static inline u64 reduce128(u128 x) {
-    u64 lo = (u64)x;
-    u64 hi = (u64)(x >> 64);
-    u64 hi_lo = hi & EPSILON;        /* hi mod 2^32 */
-    u64 hi_hi = hi >> 32;            /* hi div 2^32 */
-    /* x = lo + hi_lo*2^64 + hi_hi*2^96; 2^64 = EPSILON, 2^96 = -1 (mod p) */
-    u64 t0 = lo - hi_hi;
-    if (lo < hi_hi) t0 -= EPSILON;   /* wrapping borrow correction */
-    u64 t1 = hi_lo * EPSILON;
-    u64 r = t0 + t1;
-    if (r < t1) r += EPSILON;        /* carry correction */
-    if (r >= ORDER) r -= ORDER;
-    return r;
-}
-
-static inline u64 gl_mul(u64 a, u64 b) { return reduce128((u128)a * b); }
-
-static inline u64 gl_add(u64 a, u64 b) {
-    u64 s = a + b;
-    if (s < a) s += EPSILON;         /* wrapped past 2^64 */
-    if (s >= ORDER) s -= ORDER;
-    return s;
-}
-
-static inline u64 gl_sub(u64 a, u64 b) {   /* canonical inputs */
-    return a >= b ? a - b : a - b + ORDER;
-}
 
 static inline u64 sbox(u64 x) {
     u64 x2 = gl_mul(x, x);

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from ..field import goldilocks as gl
 from ..field import reference as ref
+from ..iop import tape
 from ..iop.generator import ConstantGenerator, SimpleGenerator
 from ..iop.target import wire
 from .gate import Gate
@@ -96,6 +97,10 @@ class _ArithmeticOpGenerator(SimpleGenerator):
         m0, m1, z = (witness.get(t) for t in self.dependencies())
         val = (self.c0 * m0 % ref.ORDER * m1 + self.c1 * z) % ref.ORDER
         out.append((wire(self.row, ArithmeticGate.wire_output(self.i)), val))
+
+    def tape_op(self):
+        return (tape.ARITHMETIC, self.dependencies(), (self.c0, self.c1),
+                [wire(self.row, ArithmeticGate.wire_output(self.i))])
 
 
 class ConstantGate(Gate):

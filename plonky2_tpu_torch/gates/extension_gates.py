@@ -9,6 +9,7 @@ reducing_extension.rs:25-64. D=2 throughout (the proving extension).
 from __future__ import annotations
 
 from ..field import reference as ref
+from ..iop import tape
 from ..iop.generator import SimpleGenerator
 from ..iop.target import wire
 from .ext_algebra import ext_add, ext_mul, ext_scalar_mul, ext_sub
@@ -102,6 +103,11 @@ class _ArithmeticExtOpGenerator(SimpleGenerator):
         for w, v in zip(g.wires_output(self.i), val):
             out.append((wire(self.row, w), v))
 
+    def tape_op(self):
+        return (tape.ARITHMETIC_EXT, self.dependencies(), (self.c0, self.c1),
+                [wire(self.row, w)
+                 for w in ArithmeticExtensionGate.wires_output(self.i)])
+
 
 class MulExtensionGate(Gate):
     """out_i = c0 * m0_i * m1_i over F_{p^2} wire pairs."""
@@ -177,6 +183,11 @@ class _MulExtOpGenerator(SimpleGenerator):
                          get(g.wires_multiplicand_1(self.i))), self.c0)
         for w, v in zip(g.wires_output(self.i), val):
             out.append((wire(self.row, w), v))
+
+    def tape_op(self):
+        return (tape.MUL_EXT, self.dependencies(), (self.c0,),
+                [wire(self.row, w)
+                 for w in MulExtensionGate.wires_output(self.i)])
 
 
 class ReducingExtensionGate(Gate):
@@ -267,6 +278,10 @@ class _ReducingExtGenerator(SimpleGenerator):
             for w, v in zip(g.wires_accs(i), acc):
                 out.append((wire(self.row, w), v))
 
+    def tape_op(self):
+        return (tape.REDUCING_EXT, self.dependencies(), (),
+                _accs(self.row, self.gate))
+
 
 class ReducingGate(Gate):
     """Like ReducingExtensionGate but coefficients are base-field wires
@@ -354,3 +369,14 @@ class _ReducingGenerator(SimpleGenerator):
             acc = ref.ext2_add(ref.ext2_mul(acc, alpha), (c, 0))
             for w, v in zip(g.wires_accs(i), acc):
                 out.append((wire(self.row, w), v))
+
+    def tape_op(self):
+        return (tape.REDUCING, self.dependencies(), (),
+                _accs(self.row, self.gate))
+
+
+def _accs(row, gate) -> list:
+    """The accumulator targets a Reducing(Extension) generator writes, in
+    its order."""
+    return [wire(row, w) for i in range(gate.num_coeffs)
+            for w in gate.wires_accs(i)]

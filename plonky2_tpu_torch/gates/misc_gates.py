@@ -10,6 +10,7 @@ from ..field import reference as ref
 from ..hash.poseidon_constants import (
     MDS_MATRIX_CIRC, MDS_MATRIX_DIAG, SPONGE_WIDTH,
 )
+from ..iop import tape
 from ..iop.generator import SimpleGenerator
 from ..iop.target import wire
 from .ext_algebra import ext_add, ext_scalar_mul_const, ext_sub
@@ -287,6 +288,12 @@ class _RandomAccessGenerator(SimpleGenerator):
                     witness.get(wire(self.row, g.wire_list_item(idx, c)))))
         for i in range(g.bits):
             out.append((wire(self.row, g.wire_bit(i, c)), (idx >> i) & 1))
+
+    def tape_op(self):
+        g, c = self.gate, self.copy
+        return (tape.RANDOM_ACCESS, self.dependencies(), (),
+                [wire(self.row, g.wire_claimed_element(c))]
+                + [wire(self.row, g.wire_bit(i, c)) for i in range(g.bits)])
 
 
 class PoseidonMdsGate(Gate):

@@ -21,6 +21,7 @@ from ..hash.poseidon_constants import (
     HALF_N_FULL_ROUNDS, MDS_MATRIX_CIRC, MDS_MATRIX_DIAG, N_PARTIAL_ROUNDS,
     SPONGE_WIDTH,
 )
+from ..iop import tape
 from ..iop.generator import SimpleGenerator
 from ..iop.target import wire
 from .gate import Gate
@@ -213,6 +214,10 @@ class PoseidonGenerator(SimpleGenerator):
         if trace is None:
             trace = _trace_python(inputs, swap)
         out.extend((wire(row, c), trace[c]) for c in _TRACE_COLS)
+
+    def tape_op(self):
+        return (tape.POSEIDON, self.dependencies(), (),
+                [wire(self.row, c) for c in _TRACE_COLS])
 
 
 def _trace_python(inputs, swap) -> dict:

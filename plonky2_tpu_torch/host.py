@@ -1,10 +1,12 @@
 """Host C libraries: the Poseidon and Poseidon2 permutations
-(`csrc/host_poseidon.c`) and the PoseidonBN128 permutation
-(`csrc/bn128_poseidon.c`).
+(`csrc/host_poseidon.c`) with the witness tape (`csrc/witness_tape.c`,
+run by `iop/tape.py`) on their shared arithmetic (`csrc/host_goldilocks.h`),
+and the PoseidonBN128 permutation (`csrc/bn128_poseidon.c`).
 
 Each is built at first use with the host C compiler (`$CC`, else `cc`) into
-`plonky2_tpu_torch/_build/`, named by a hash of the source, the compiler
-command and its constants header, which is emitted from the port's own
+`plonky2_tpu_torch/_build/`, named by a hash of its sources and the headers
+they include, the compiler command and its constants header, which is
+emitted from the port's own
 `hash/poseidon_constants.py`, `hash/poseidon_fast.py` and
 `hash/poseidon2_constants.py` (Poseidon, Poseidon2) or
 `hash/poseidon_bn128.py` (BN128, in Montgomery form), and loaded with
@@ -58,14 +60,16 @@ def _constants_header() -> str:
         for name, vals in tables)
 
 
-def _build(src_name: str, header: dict, lib_name: str, flags=()):
-    """ctypes handle to the library of csrc/`src_name` with its generated
-    `header` ({file name: text}), building it if needed; None when it
-    cannot be built here."""
-    src = os.path.join(CSRC_DIR, src_name)
+def _build(src_names, header: dict, lib_name: str, flags=()):
+    """ctypes handle to the library of the csrc/ files `src_names` (its C
+    sources and the headers they include) with its generated `header`
+    ({file name: text}), building it if needed; None when it cannot be
+    built here."""
+    paths = [os.path.join(CSRC_DIR, name) for name in src_names]
+    srcs = [p for p in paths if p.endswith(".c")]
     cmd = [os.environ.get("CC", "cc"), "-O2", "-shared", "-fPIC", *flags]
     lib_path = os.path.join(
-        BUILD_DIR, f"{lib_name}-{build_key([src], header, cmd)}.so")
+        BUILD_DIR, f"{lib_name}-{build_key(paths, header, cmd)}.so")
     try:
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -76,7 +80,7 @@ def _build(src_name: str, header: dict, lib_name: str, flags=()):
                     with open(os.path.join(tmp_dir, name), "w") as f:
                         f.write(text)
                 tmp = os.path.join(tmp_dir, "lib.so")
-                subprocess.run([*cmd, "-I", tmp_dir, "-o", tmp, src],
+                subprocess.run([*cmd, "-I", tmp_dir, "-o", tmp, *srcs],
                                check=True, capture_output=True)
                 os.replace(tmp, lib_path)
         return ctypes.CDLL(lib_path)
@@ -91,7 +95,7 @@ def load():
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    lib = _build("host_poseidon.c",
+    lib = _build(("host_poseidon.c", "witness_tape.c", "host_goldilocks.h"),
                  {"poseidon_constants_gen.h": _constants_header()},
                  "libplonky2_host")
     if lib is None:
@@ -104,6 +108,16 @@ def load():
         getattr(lib, name + "_many").restype = None
     lib.poseidon_generator_trace.argtypes = [u64p, ctypes.c_uint64, u64p]
     lib.poseidon_generator_trace.restype = None
+    # the tape and the store's arrays go as addresses (iop/tape.py)
+    addr = ctypes.c_void_p
+    lib.witness_tape_run.argtypes = [
+        addr, ctypes.c_int64, addr, addr, addr,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)]
+    lib.witness_tape_run.restype = ctypes.c_int64
+    lib.wire_matrix_fill.argtypes = [addr, addr, ctypes.c_int64, addr, addr,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int64, addr]
+    lib.wire_matrix_fill.restype = None
     _LIB = lib
     return _LIB
 
@@ -186,7 +200,7 @@ def load_bn128():
     if _BN_LIB is not None or _BN_TRIED:
         return _BN_LIB
     _BN_TRIED = True
-    lib = _build("bn128_poseidon.c",
+    lib = _build(("bn128_poseidon.c",),
                  {"bn128_constants_gen.h": _bn128_header()},
                  "libplonky2_bn128", ("-pthread",))
     if lib is None:

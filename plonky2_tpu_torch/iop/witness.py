@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import host
 from ..field import reference as ref
 from ..utils import timing
 from .target import target_index
@@ -77,9 +78,12 @@ class PartitionLayout:
 
 
 class PartitionWitness:
-    """Full witness keyed by union-find representative index; `set_reps`
-    records the representatives `set` filled, in the order it filled
-    them."""
+    """Full witness keyed by union-find representative index, in a typed
+    store: `values`, uint64 [representatives], canonical where set and 0
+    where not; `flags`, uint8 [representatives], 1 where set; and the
+    representatives set so far, in the order they were set (`set_reps`,
+    an int64 view of a preallocated array, which `set` and the witness tape
+    of iop/tape.py append to alike)."""
 
     def __init__(self, layout, num_wires: int, degree: int):
         """`layout`: a PartitionLayout, or the circuit's representative
@@ -90,23 +94,33 @@ class PartitionWitness:
         self.rep_list = layout.rep_list
         self.num_wires = num_wires
         self.degree = degree
-        self.values: list = [None] * len(layout.rep_list)
-        self.set_reps: list[int] = []
+        size = len(layout.rep_list)
+        self.values = np.zeros(size, dtype=np.uint64)
+        self.flags = np.zeros(size, dtype=np.uint8)
+        # each representative is set at most once
+        self.order = np.empty(size, dtype=np.int64)
+        self.num_set = 0
+
+    @property
+    def set_reps(self) -> np.ndarray:
+        """The representatives set so far, in the order they were set."""
+        return self.order[:self.num_set]
 
     def rep_index(self, t) -> int:
         return self.rep_list[target_index(t, self.num_wires, self.degree)]
 
     def try_get(self, t) -> int | None:
         """The target's value, or None while it is unset."""
-        return self.values[self.rep_index(t)]
+        idx = self.rep_index(t)
+        return self.values.item(idx) if self.flags.item(idx) else None
 
     def is_set(self, t) -> bool:
-        return self.values[self.rep_index(t)] is not None
+        return bool(self.flags.item(self.rep_index(t)))
 
     def get(self, t) -> int:
-        v = self.values[self.rep_index(t)]
-        assert v is not None, f"target {t} not set"
-        return v
+        idx = self.rep_index(t)
+        assert self.flags.item(idx), f"target {t} not set"
+        return self.values.item(idx)
 
     def set(self, t, value: int) -> int | None:
         """Returns the representative index if newly set, else None
@@ -117,15 +131,22 @@ class PartitionWitness:
     def set_rep(self, idx: int, t, value: int) -> bool:
         """`set` of target `t` whose representative `idx` the caller has;
         True if newly set."""
-        value %= ref.ORDER
-        prev = self.values[idx]
-        if prev is not None:
+        value = int(value) % ref.ORDER
+        if self.flags.item(idx):
+            prev = self.values.item(idx)
             assert prev == value, \
                 f"Partition containing {t} was set twice with different values: {prev} != {value}"
             return False
         self.values[idx] = value
-        self.set_reps.append(idx)
+        self.flags[idx] = 1
+        self.order[self.num_set] = idx
+        self.num_set += 1
         return True
+
+    def as_list(self) -> list:
+        """The value of each representative as an int, None where unset."""
+        return [v if f else None
+                for v, f in zip(self.values.tolist(), self.flags.tolist())]
 
     def full_witness(self) -> np.ndarray:
         """uint64 [num_wires, degree] wire matrix; unset wires are zero
@@ -139,28 +160,39 @@ def wire_matrix(witnesses: list, out: np.ndarray | None = None
     circuit, unset wires zero, written into `out` when given. Only the set
     representatives are read: each one's value (canonical, as `set` reduces
     it) goes to its slots through the layout's inverse map, so the work
-    follows the count of set representatives. Counts `wire_values`, the
-    set representatives carried, on the thread's active TimingTree."""
+    follows the count of set representatives; in the host C library where
+    it is built and the degree a power of two (`csrc/witness_tape.c`
+    `wire_matrix_fill`), else in numpy.
+    Counts `wire_values`, the set representatives carried, on the thread's
+    active TimingTree."""
     layout = witnesses[0].layout
     assert all(w.layout is layout for w in witnesses), \
         "the witnesses of one wire matrix share their circuit's layout"
+    shape = (layout.num_wires, len(witnesses), layout.degree)
     if out is None:
-        out = np.zeros((layout.num_wires, len(witnesses), layout.degree),
-                       dtype=np.uint64)
+        out = np.zeros(shape, dtype=np.uint64)
+    elif out.shape != shape:
+        raise ValueError(f"a wire matrix of {shape}, given {out.shape}")
     else:
         out.fill(0)
+    log_degree = layout.degree.bit_length() - 1
+    lib = host.load() if layout.degree == 1 << log_degree and \
+        out.flags.c_contiguous and out.dtype == np.uint64 else None
     for b, w in enumerate(witnesses):
-        values = w.values
-        reps = np.array(w.set_reps, dtype=np.int64)
-        first = layout.rep_starts[reps]
-        counts = layout.rep_starts[reps + 1] - first
-        # the slots of each set representative, one run after another
-        runs = np.cumsum(counts) - counts
-        slots = layout.rep_slots[np.arange(int(counts.sum()))
-                                 + np.repeat(first - runs, counts)]
-        wire, row = np.divmod(slots, layout.degree)
-        out[wire, b, row] = np.repeat(
-            np.array([values[r] for r in w.set_reps], dtype=np.uint64),
-            counts)
+        reps = w.set_reps
+        if lib is not None:
+            lib.wire_matrix_fill(
+                w.values.ctypes.data, w.order.ctypes.data, len(reps),
+                layout.rep_starts.ctypes.data, layout.rep_slots.ctypes.data,
+                log_degree, len(witnesses), b, out.ctypes.data)
+        else:
+            first = layout.rep_starts[reps]
+            counts = layout.rep_starts[reps + 1] - first
+            # the slots of each set representative, one run after another
+            runs = np.cumsum(counts) - counts
+            slots = layout.rep_slots[np.arange(int(counts.sum()))
+                                     + np.repeat(first - runs, counts)]
+            wire, row = np.divmod(slots, layout.degree)
+            out[wire, b, row] = np.repeat(w.values[reps], counts)
         timing.count("wire_values", len(reps))
     return out

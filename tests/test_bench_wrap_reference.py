@@ -307,6 +307,7 @@ def test_fixpoint_spans_and_counters():
         tree.counts["generator_runs"]
     assert tree.span_counts["run generators"] == {
         "generator_runs": tree.counts["generator_runs"],
+        "generator_tape_runs": tree.counts["generator_tape_runs"],
         "generator_passes": tree.counts["generator_passes"],
         "generator_replays": tree.counts["generator_replays"]}
     off = TimingTree(enabled=False)
@@ -334,7 +335,7 @@ def test_fixpoint_counts_are_pinned():
         assert tree.counts["generator_runs"] == runs
         assert tree.counts["generator_passes"] == passes
         assert tree.counts["generator_replays"] == replays
-        set_count = sum(v is not None for v in full.values)
+        set_count = sum(v is not None for v in full.as_list())
         assert tree.counts["wire_values"] == len(full.set_reps) == set_count
         assert set_count == 35778
     assert len(host.generators) == 6890

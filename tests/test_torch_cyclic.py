@@ -116,7 +116,7 @@ def _assert_layouts_equal(host, jdata):
 def _assert_witnesses_equal(witness, jwitness):
     np.testing.assert_array_equal(witness.full_witness(),
                                   jwitness.full_witness())
-    assert witness.values == jwitness.values
+    assert witness.as_list() == jwitness.values
 
 
 # -- conditional recursion (tests/test_conditional.py's circuit) ------------

@@ -261,8 +261,8 @@ def test_generators_match_jax_and_satisfy_the_gate(name):
     got = _run(g.generators(0, consts), witness)
     want = _run(j.generators(0, consts), jwitness)
     assert got == want and got
-    assert witness.values == jwitness.values
-    row = [(v or 0, 0) for v in witness.values[:g.num_wires()]]
+    assert witness.as_list() == jwitness.values
+    row = [(v or 0, 0) for v in witness.as_list()[:g.num_wires()]]
     assert g.eval_unfiltered(gate.EXT, [(c, 0) for c in consts], row,
                              [(0, 0)] * 4) == [(0, 0)] * g.num_constraints()
 
@@ -791,7 +791,7 @@ def test_schnorr_witness_matches_jax():
     s = _schnorr()
     np.testing.assert_array_equal(s["witness"].full_witness(),
                                   s["jwitness"].full_witness())
-    assert s["witness"].values == s["jwitness"].values
+    assert s["witness"].as_list() == s["jwitness"].values
     _check_all_rows(s["host"], s["witness"])
 
 
@@ -961,5 +961,5 @@ def test_jax_nonnative_and_glv_generators_convert():
     set_nonnative_target(pw, k, rng.randrange(secp.N))
     witness = generate_partial_witness(pw, host, host.common)
     host.generators = got
-    assert generate_partial_witness(pw, host, host.common).values == \
-        witness.values
+    assert generate_partial_witness(pw, host, host.common).as_list() == \
+        witness.as_list()

@@ -162,10 +162,10 @@ def test_generators_match_jax_and_satisfy_the_gate(name):
     got = _run(g.generators(0, consts), witness)
     want = _run(j.generators(0, consts), jwitness)
     assert got == want and got
-    assert witness.values == jwitness.values
+    assert witness.as_list() == jwitness.values
     for c, w in g.extra_constant_wires():
         witness.set(wire(0, w), consts[c])
-    row = [(v or 0, 0) for v in witness.values[:g.num_wires()]]
+    row = [(v or 0, 0) for v in witness.as_list()[:g.num_wires()]]
     ext_consts = [(c, 0) for c in consts]
     assert g.eval_unfiltered(gate.EXT, ext_consts, row, [(0, 0)] * 4) == \
         [(0, 0)] * g.num_constraints()

@@ -169,7 +169,7 @@ def test_wrap_witness_matches_jax(case):
     _, witness, _, jwitness = _wraps(case)
     np.testing.assert_array_equal(witness.full_witness(),
                                   jwitness.full_witness())
-    assert witness.values == jwitness.values
+    assert witness.as_list() == jwitness.values
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -298,7 +298,7 @@ def test_builder_gadgets_match_jax():
         jdata.prover_only.sigmas)
     np.testing.assert_array_equal(witness.full_witness(),
                                   jwitness.full_witness())
-    assert witness.values == jwitness.values
+    assert witness.as_list() == jwitness.values
     routed = host.common.config.num_routed_wires
     for t in [("v", 3), ("w", 2, 79), ("w", 2, 80), ("w", 5, 134)]:
         assert target.is_wire(t) == jtarget.is_wire(t)

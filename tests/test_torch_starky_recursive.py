@@ -119,7 +119,7 @@ def test_witness_matches_jax(case):
     host, witness, pt, proof, _, jwitness = _circuits(case)
     np.testing.assert_array_equal(witness.full_witness(),
                                   jwitness.full_witness())
-    assert witness.values == jwitness.values
+    assert witness.as_list() == jwitness.values
     assert [witness.get(t) for t in host.public_inputs] == \
         list(proof.public_inputs)
 

@@ -6,11 +6,13 @@ by its proofs; and the `wire matrix` span and `wire_values` count.
 
 Random partitions of a small target space: unset slots, values of p - 1
 and of 2^63 and above, virtual targets past the wire slots, B = 1 and
-B = 4. Tolerance: exact (bit for bit)."""
+B = 4, the matrix filled in C and in numpy. Tolerance: exact (bit for
+bit)."""
 
 import numpy as np
 import pytest
 
+from plonky2_tpu_torch import host
 from plonky2_tpu_torch.field import goldilocks as gl
 from plonky2_tpu_torch.iop.generator import generate_partial_witness
 from plonky2_tpu_torch.iop.target import wire
@@ -32,9 +34,10 @@ def dense_walk(witness) -> np.ndarray:
     """The wire matrix as it was built before: a Python walk over every
     wire slot through the representative list, None as 0."""
     n, w = witness.degree, witness.num_wires
+    values = witness.as_list()
     flat = np.asarray(
         [v if v is not None else 0
-         for v in (witness.values[r] for r in witness.rep_list[: n * w])],
+         for v in (values[r] for r in witness.rep_list[: n * w])],
         dtype=np.uint64)
     return flat.reshape(n, w).T.copy()
 
@@ -108,6 +111,26 @@ def test_wire_matrix_of_b_witnesses(seed, B):
     np.testing.assert_array_equal(wire_matrix(witnesses), want)
 
 
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("B", [1, 4])
+def test_numpy_fill_equals_the_c_fill(seed, B, monkeypatch):
+    """Without the host C library the matrix is filled in numpy: the same
+    matrix, bit for bit, and each proof's slice its dense walk."""
+    if host.load() is None:
+        pytest.fail("the host C library does not build here")
+    rng = np.random.default_rng([seed, B, 2])
+    layout = PartitionLayout(random_map(rng), NUM_WIRES, DEGREE)
+    witnesses = [PartitionWitness(layout, NUM_WIRES, DEGREE)
+                 for _ in range(B)]
+    for w in witnesses:
+        fill(w, rng, rng.random())
+    in_c = wire_matrix(witnesses)
+    monkeypatch.setattr(host, "load", lambda: None)
+    np.testing.assert_array_equal(wire_matrix(witnesses), in_c)
+    np.testing.assert_array_equal(
+        in_c, np.stack([dense_walk(w) for w in witnesses], axis=1))
+
+
 def test_wire_values_counts_the_set_representatives():
     rng = np.random.default_rng(7)
     layout = PartitionLayout(random_map(rng), NUM_WIRES, DEGREE)
@@ -118,7 +141,7 @@ def test_wire_values_counts_the_set_representatives():
     tree = TimingTree(enabled=True)
     with tree.scope("wire matrix"):
         wire_matrix(witnesses)
-    set_count = sum(v is not None for w in witnesses for v in w.values)
+    set_count = sum(v is not None for w in witnesses for v in w.as_list())
     assert tree.counts == {"wire_values": set_count}
     assert set_count == sum(len(w.set_reps) for w in witnesses)
     assert all(len(set(w.set_reps)) == len(w.set_reps) for w in witnesses)

@@ -7,8 +7,10 @@ the same representatives replay it, each generator once.
   under the same inputs and random stream, on the small wrap
   (tests/golden/wrap_small*), the cyclic hash chain's base and step (the
   plan recorded on the other condition) and the gadget circuits of
-  tests/test_torch_gadgets.py; and a fib proof made from a replay equals
-  the one made from the worklist, byte for byte.
+  tests/test_torch_gadgets.py, both where the lowered steps run on the
+  witness tape (iop/tape.py) and where every step runs in Python (no host
+  C library); and a fib proof made from a replay equals the one made from
+  the worklist, byte for byte.
 - Inputs that set other targets record a new plan.
 - A partition set twice with different values raises under replay.
 - A generator that writes other targets than recorded, or writes more, or
@@ -22,6 +24,7 @@ which is small enough to prove on the CPU. Tolerance: exact.
 import os
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,6 +33,8 @@ if REPO not in sys.path:
 
 import gadget_circuits  # noqa: E402
 import service_circuits  # noqa: E402
+from plonky2_tpu_torch import host as host_lib  # noqa: E402
+from plonky2_tpu_torch.iop import tape  # noqa: E402
 from plonky2_tpu_torch.iop.generator import (  # noqa: E402
     RandomValueGenerator, SimpleGenerator, generate_partial_witness,
 )
@@ -84,8 +89,25 @@ def _pw(pairs) -> PartialWitness:
 
 
 def _assert_same(got, want) -> None:
-    assert got.set_reps == want.set_reps
-    assert got.values == want.values
+    np.testing.assert_array_equal(got.set_reps, want.set_reps)
+    assert got.as_list() == want.as_list()
+
+
+def _tape_steps(prover_data) -> int:
+    """The steps of the circuit's plan that its tapes run."""
+    return sum(len(s.steps) for s in prover_data._witness_plan.segments
+               if isinstance(s, tape.Tape))
+
+
+@pytest.fixture(params=["tape", "python"])
+def replay(request, monkeypatch):
+    """Where the replay runs its lowered steps: on the witness tape, or, with
+    no host C library, in Python."""
+    if request.param == "python":
+        monkeypatch.setattr(host_lib, "load", lambda: None)
+    elif host_lib.load() is None:
+        pytest.fail("the host C library does not build here")
+    return request.param
 
 
 # -- the circuits -------------------------------------------------------------
@@ -126,10 +148,12 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_replay_equals_the_worklist(case):
+def test_replay_equals_the_worklist(case, replay):
     """The worklist's witness (a recording), then the replay's from the
-    same random stream: equal values, set in the same order."""
+    same random stream: equal values, set in the same order; the tape runs
+    the plan's lowered steps, or none with no host C library."""
     host, inputs, other = CASES[case]()
+    _forget(host)       # the circuit may be another case's, with its plan
     rewind = _rewinder(host)
     want, counts = _fixpoint(inputs(), host)
     assert counts["generator_replays"] == 0
@@ -139,8 +163,13 @@ def test_replay_equals_the_worklist(case):
         assert counts["generator_replays"] == 0
     rewind()
     got, counts = _fixpoint(inputs(), host)
+    lowered = _tape_steps(host)
     assert counts == {"generator_runs": len(host.generators),
+                      "generator_tape_runs":
+                          lowered if replay == "tape" else 0,
                       "generator_passes": 1, "generator_replays": 1}
+    if case == "wrap_small":    # Poseidon, arithmetic, reducing, ...
+        assert lowered > len(host.generators) // 2
     _assert_same(got, want)
 
 
@@ -304,19 +333,20 @@ def test_a_generator_off_the_plan_falls_back(kind):
     want, _ = _fixpoint(_pw([(x, 3)]), host)
     randoms = {got.rep_index(g.target) for g in host.generators
                if isinstance(g, RandomValueGenerator)}
-    assert randoms and all(got.values[r] is not None for r in randoms)
-    assert got.set_reps == want.set_reps
-    assert [v for r, v in enumerate(got.values) if r not in randoms] == \
-        [v for r, v in enumerate(want.values) if r not in randoms]
+    assert randoms and all(got.flags[r] for r in randoms)
+    np.testing.assert_array_equal(got.set_reps, want.set_reps)
+    assert [v for r, v in enumerate(got.as_list()) if r not in randoms] == \
+        [v for r, v in enumerate(want.as_list()) if r not in randoms]
     _, counts = _fixpoint(_pw([(x, 3)]), host)
     assert counts["generator_replays"] == 1     # the new plan holds
 
 
 def test_counters_of_a_recording_and_a_replay():
     """A recording: every generator runs at least once, in one pass or
-    more, and `generator_replays` is 0; a replay: one run a generator, one
-    pass, `generator_replays` 1. Both spans open in each, inside the
-    caller's scope."""
+    more, none on the tape, and `generator_replays` is 0; a replay: one run
+    a generator, the lowered ones (c = a * b's) on the tape, one pass,
+    `generator_replays` 1. Both spans open in each, inside the caller's
+    scope."""
     builder, a, b, c = _product()
     host = builder.build_host()
     n = len(host.generators)
@@ -329,9 +359,11 @@ def test_counters_of_a_recording_and_a_replay():
         assert counts["generator_replays"] == replays
         if replays:
             assert counts["generator_runs"] == n
+            assert counts["generator_tape_runs"] == _tape_steps(host) >= 1
             assert counts["generator_passes"] == 1
         else:
             assert counts["generator_runs"] >= n
+            assert counts["generator_tape_runs"] == 0
             assert counts["generator_passes"] >= 1
         assert [s.label for s in tree.spans if s.parent is not None] == \
             ["generator index", "generator passes"]
